@@ -1,0 +1,535 @@
+"""Smoke run of grom_tpu_torch, the PyTorch + CUDA port, on one CUDA card.
+
+    python3 chip_smoke.py
+
+The phases run in this order; any failure raises and the script exits
+non-zero without its result line:
+
+1. the toolchain and the card (torch, CUDA, nvcc, triton, nvidia-smi);
+2. build the CUDA kernels from grom_tpu_torch/csrc/ with nvcc for sm_90a;
+3. every kernel against its plain PyTorch version on the inputs that a
+   torch-engine run of the cnvrich fixture hands it: integers exactly, f64
+   bitwise against the plain version run on CPU copies;
+4. the committed fixtures through ``python -m grom_tpu_torch`` on the torch
+   engine: rows against the reference-binary oracles, files byte for byte
+   against the port's host engine (grom_tpu's native engines);
+5. real size: one 24 Mb chromosome at 30x (grom_tpu.testing.bulk_sim,
+   seed 5), host engine then torch engine, VCF and .ctx.vcf byte-identical;
+   the launch counts of the torch run; then every kernel against its plain
+   version, bitwise and timed beside it on the card, on the largest inputs
+   that run handed it (a full 2^18-base tile for the tile kernel).
+
+Output: per-phase lines, the card's name and power limit, one JSON line
+with the kernel table, and as the last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Everything it writes goes under build/chip_smoke/.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(REPO, "build", "chip_smoke")
+DATA = os.path.join(REPO, "tests", "data")
+
+# name -> (source of the kernel, the grom_tpu device function it replaces)
+KERNELS = {
+    "tile_accumulate": ("grom_tpu_torch/csrc/tile_accumulate.cu",
+                        "grom_tpu/ops/accumulate.py:63"),
+    "zscores": ("grom_tpu_torch/csrc/cnv.cu",
+                "grom_tpu/ops/cnv_device.py:63"),
+    "seed_eval": ("grom_tpu_torch/csrc/cnv.cu",
+                  "grom_tpu/ops/cnv_device.py:154"),
+    "null_model": ("grom_tpu_torch/csrc/cnv.cu",
+                   "grom_tpu/ops/cnv_device.py:371"),
+}
+
+# (fixture, extra flags, oracle tag); cnvmany is generated, not committed
+FIXTURES = [
+    ("ds200k", [], ""),
+    ("dup60k", ["-M"], ""),
+    ("sv400k", [], ""),
+    ("ctx2x60k", [], ""),
+    ("cnvrich", ["-V", "0.0001"], ""),
+    ("cnvrich", ["-V", "0.0001", "-K", "0"], ".k0"),
+    ("cnvrich", ["-V", "0.0001", "-g", "1"], ".male"),
+    ("cnvmany", ["-V", "0.0001"], ""),
+]
+# fixtures whose .ctx.vcf oracle the host engine is held to
+CTX_ORACLES = ("ds200k", "ctx2x60k")
+
+BULK = dict(length=24_000_000, coverage=30.0, seed=5, snp_rate=1e-3,
+            hotspots=[(6_000_000, 6_020_000, 20.0)],
+            depressions=[(14_000_000, 14_040_000, 0.4)],
+            repeats=[(20_000_000, 20_010_000, b"AT")])
+
+
+def say(*a) -> None:
+    print(*a, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def engine(name: str):
+    """GROM_TPU_TORCH_ENGINE set to ``name`` for an in-process run."""
+    old = os.environ.get("GROM_TPU_TORCH_ENGINE")
+    os.environ["GROM_TPU_TORCH_ENGINE"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GROM_TPU_TORCH_ENGINE"]
+        else:
+            os.environ["GROM_TPU_TORCH_ENGINE"] = old
+
+
+def run_cli(argv, engine_name: str) -> float:
+    """One in-process run of the port's CLI; returns its wall seconds."""
+    import torch
+
+    from grom_tpu_torch import cli
+    t0 = time.perf_counter()
+    with engine(engine_name):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError("grom_tpu_torch %s exited %d" % (argv, rc))
+    return time.perf_counter() - t0
+
+
+def run_module(argv, engine_name: str) -> float:
+    """One run of ``python -m grom_tpu_torch`` in a child process."""
+    env = dict(os.environ, GROM_TPU_TORCH_ENGINE=engine_name)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "grom_tpu_torch", *argv],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError("python -m grom_tpu_torch %s exited %d:\n%s"
+                           % (argv, r.returncode, r.stderr[-4000:]))
+    return time.perf_counter() - t0
+
+
+def ctx_path(vcf: str) -> str:
+    return vcf[:-4] + ".ctx.vcf"
+
+
+def body(path: str, drop=("##fileDate",)) -> bytes:
+    """The file's bytes without the header lines in ``drop`` (the run
+    date; ``##reference`` carries the FASTA path)."""
+    with open(path, "rb") as f:
+        return b"".join(ln for ln in f
+                        if not ln.startswith(tuple(d.encode() for d in drop)))
+
+
+def same_files(a_vcf: str, b_vcf: str) -> None:
+    for a, b in ((a_vcf, b_vcf), (ctx_path(a_vcf), ctx_path(b_vcf))):
+        if body(a) != body(b):
+            raise AssertionError("%s and %s differ" % (a, b))
+
+
+def _parity():
+    """tests/test_full_parity.py, the repo's row comparison against the
+    reference-binary oracles (loaded by path: ``tests`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "grom_full_parity", os.path.join(REPO, "tests", "test_full_parity.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rows_match_oracle(got_vcf: str, oracle_vcf: str) -> int:
+    par = _parity()
+    got, want = par._rows(got_vcf), par._rows(oracle_vcf)
+    if len(got) != len(want):
+        raise AssertionError("%s: %d rows, oracle %d"
+                             % (got_vcf, len(got), len(want)))
+    for a, b in zip(got, want):
+        if not par._rows_equal(a, b):
+            raise AssertionError("%s: row %r, oracle %r" % (got_vcf, a, b))
+    return len(got)
+
+
+def count_rows(vcf: str):
+    rows = _parity()._rows(vcf)
+    cnv = sum(1 for r in rows if "SD:Z:CN" in r)
+    snv = sum(1 for r in rows if r.split("\t")[4] in ("A", "C", "G", "T"))
+    return len(rows), snv, cnv
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _targets():
+    from grom_tpu_torch.ops import accumulate, cnv_device
+    return {"tile_accumulate": (accumulate, "tile_kernel",
+                                accumulate.tile_kernel_plain),
+            "zscores": (cnv_device, "zscores", cnv_device.zscores_plain),
+            "seed_eval": (cnv_device, "seed_eval",
+                          cnv_device.seed_eval_plain),
+            "null_model": (cnv_device, "null_model",
+                           cnv_device.null_model_plain)}
+
+
+class Recorder:
+    """While a run of the port is inside it, keeps for every kernel
+    wrapper the arguments of its heaviest call (the most aligned bases of
+    a full-width tile, the longest z block, the most window steps, the
+    most null segments), so the kernel can then be held to its plain
+    version at the shapes the main path gave it."""
+
+    def __init__(self):
+        self.best = {}
+        self._saved = {}
+
+    @staticmethod
+    def _weight(name, args, out):
+        if name == "tile_accumulate":
+            t = args[0]
+            return (int(t.chrom_up.shape[0]), int(t.cum[-1]))
+        if name == "zscores":
+            return (int(args[0].shape[0]),)
+        if name == "seed_eval":
+            return (int(out[0].sum()), int(args[1].shape[0]))
+        return (len(args[2].s),)
+
+    def __enter__(self):
+        for name, (mod, attr, _) in _targets().items():
+            fn = getattr(mod, attr)
+            self._saved[name] = (mod, attr, fn)
+
+            def wrap(*a, _n=name, _f=fn):
+                out = _f(*a)
+                w = self._weight(_n, a, out)
+                if _n not in self.best or w > self.best[_n][0]:
+                    self.best[_n] = (w, a)
+                return out
+            setattr(mod, attr, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved.values():
+            setattr(mod, attr, fn)
+
+
+def _to(x, device):
+    """``x`` with every tensor in it (also inside tuples) on ``device``."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        vals = [_to(v, device) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _flat(out):
+    """Every output of a kernel as a list of numpy arrays."""
+    import numpy as np
+    import torch
+    if isinstance(out, torch.Tensor):
+        return [out.detach().cpu().numpy()]
+    if isinstance(out, np.ndarray):
+        return [out]
+    if isinstance(out, dict):
+        return [a for k in sorted(out) for a in _flat(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [a for v in out for a in _flat(v)]
+    return [np.asarray(out)]
+
+
+def _diff(got, want, exact: bool):
+    """(max abs difference, max relative difference) over all outputs;
+    with ``exact`` raises unless every output is equal bit for bit."""
+    import numpy as np
+    g, w = _flat(got), _flat(want)
+    if len(g) != len(w):
+        raise AssertionError("output count %d != %d" % (len(g), len(w)))
+    mabs = mrel = 0.0
+    for i, (a, b) in enumerate(zip(g, w)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError("output %d: %s %s != %s %s"
+                                 % (i, a.shape, a.dtype, b.shape, b.dtype))
+        if a.dtype.kind == "f":
+            bits = np.uint64 if a.itemsize == 8 else np.uint32
+            neq = a.view(bits) != b.view(bits)
+        else:
+            neq = a != b
+        same = not neq.any()
+        if exact and not same:
+            raise AssertionError(
+                "output %d differs from the plain version at %d of %d "
+                "entries (first at %s)" % (i, int(neq.sum()), neq.size,
+                                           np.argwhere(neq)[0].tolist()))
+        if a.size and not same:
+            d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+            mabs = max(mabs, float(np.nanmax(d)))
+            r = d / np.maximum(np.abs(b.astype(np.float64)), 1e-300)
+            mrel = max(mrel, float(np.nanmax(r)))
+    return mabs, mrel
+
+
+def _ms(fn) -> float:
+    """Mean milliseconds of one call (wrapper included: uploads of its
+    small host tables and its host syncs), timed with CUDA events after a
+    warm-up call, over as many calls as fit in about one second."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = max(1, min(20, int(1.0 / max(time.perf_counter() - t0, 1e-4))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_kernels(rec: Recorder, label: str, timed: bool) -> dict:
+    """Each recorded kernel call against its plain version: bitwise
+    against the plain version on CPU copies; with ``timed``, also beside
+    the plain version run on the card."""
+    import torch
+    results = {}
+    for name, (mod, attr, plain) in _targets().items():
+        if name not in rec.best:
+            raise AssertionError("%s: the run never called %s"
+                                 % (label, name))
+        weight, args = rec.best[name]
+        kernel = getattr(mod, attr)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(*_to(args, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        err, _ = _diff(got, want, exact=True)
+        row = {"max_abs_err": err, "shape": list(weight)}
+        msg = ("%s %s %s: equal to the plain version on CPU copies "
+               "(plain on CPU %.3f s)" % (label, name, weight, cpu_s))
+        if timed:
+            on_card = plain(*args)
+            torch.cuda.synchronize()
+            _, rel = _diff(got, on_card, exact=False)
+            row["ms"] = _ms(lambda: kernel(*args))
+            row["plain_ms"] = _ms(lambda: plain(*args))
+            row["rel_vs_plain_on_card"] = rel
+            msg += ("; max rel diff to plain on card %.3g; kernel %.3f ms, "
+                    "plain on card %.3f ms"
+                    % (rel, row["ms"], row["plain_ms"]))
+        say(msg)
+        results[name] = row
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_toolchain() -> str:
+    import torch
+
+    from grom_tpu_torch import _build
+    say("== 1. toolchain and card")
+    say("python", sys.version.split()[0], "torch", torch.__version__,
+        "cuda", torch.version.cuda)
+    nvcc = _build.nvcc()
+    r = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                       timeout=60, check=True)
+    say("nvcc", nvcc, "|", r.stdout.strip().splitlines()[-1])
+    try:
+        import triton
+        say("triton", triton.__version__)
+    except ImportError:
+        say("triton: not importable")
+    from grom_tpu.native import get_lib
+    if get_lib() is None:
+        raise RuntimeError("grom_tpu's native library (native/, make) did "
+                           "not build: the host engines would run their "
+                           "pure-Python fallbacks")
+    say("grom_tpu native library: loaded")
+    smi = nvidia_smi_line()
+    say("card", smi, "| torch sees", torch.cuda.device_count(), "x",
+        torch.cuda.get_device_name(0))
+    return smi
+
+
+def phase_build() -> None:
+    from grom_tpu_torch import _build
+    say("== 2. build")
+    for name in _build.LIBRARIES:
+        t0 = time.perf_counter()
+        path = _build.library_path(name)
+        fresh = not os.path.exists(path)
+        _build.library(name)
+        say("%s.cu -> %s (%s, %.1f s)" % (name, os.path.relpath(path, REPO),
+                                         "built" if fresh else "cached",
+                                         time.perf_counter() - t0))
+
+
+def phase_cnvrich_kernels() -> None:
+    say("== 3. kernels against their plain versions (cnvrich inputs; "
+        "tolerance: integers exact, f64 bitwise)")
+    d = os.path.join(DATA, "cnvrich")
+    out = os.path.join(OUT, "k_cnvrich.vcf")
+    with Recorder() as rec:
+        run_cli(["-i", os.path.join(d, "ds.bam"), "-r",
+                 os.path.join(d, "ds.fa"), "-o", out, "-V", "0.0001"],
+                "torch")
+    check_kernels(rec, "cnvrich", timed=False)
+
+
+def phase_fixtures() -> None:
+    say("== 4. fixtures, torch engine vs oracle and host engine")
+    from grom_tpu.testing import cnvmany
+    for fx, flags, tag in FIXTURES:
+        if fx == "cnvmany":
+            prefix = os.path.join(OUT, "cnvmany", "ds")
+            if not os.path.exists(prefix + ".bam.bai"):
+                os.makedirs(os.path.dirname(prefix), exist_ok=True)
+                cnvmany.build(prefix)
+            fa, bam = prefix + ".fa", prefix + ".bam"
+        else:
+            d = os.path.join(DATA, fx)
+            fa, bam = os.path.join(d, "ds.fa"), os.path.join(d, "ds.bam")
+        stem = os.path.join(OUT, "%s%s" % (fx, tag or ".default"))
+        args = ["-i", bam, "-r", fa] + flags
+        t_dev = run_module(args + ["-o", stem + ".torch.vcf"], "torch")
+        t_host = run_cli(args + ["-o", stem + ".host.vcf"], "host")
+        same_files(stem + ".torch.vcf", stem + ".host.vcf")
+        n = rows_match_oracle(stem + ".torch.vcf", os.path.join(
+            DATA, fx, "oracle%s.vcf" % tag))
+        if fx in CTX_ORACLES:
+            drop = ("##fileDate", "##reference")
+            if body(ctx_path(stem + ".torch.vcf"), drop) != body(
+                    os.path.join(DATA, fx, "oracle.ctx.vcf"), drop):
+                raise AssertionError("%s: .ctx.vcf differs from the oracle"
+                                     % fx)
+        _, snv, cnv = count_rows(stem + ".torch.vcf")
+        say("%-8s %-22s %4d rows (%d SNV, %d CNV) = oracle = host engine; "
+            "torch process %.1f s, host in-process %.1f s"
+            % (fx, " ".join(flags) or "-", n, snv, cnv, t_dev, t_host))
+
+
+def phase_real_size() -> dict:
+    import torch
+
+    from grom_tpu.testing.bulk_sim import bulk_dataset
+    from grom_tpu.utils import timing
+    from grom_tpu_torch import _build
+    say("== 5. real size: %d Mb at %gx" % (BULK["length"] // 10**6,
+                                           BULK["coverage"]))
+    prefix = os.path.join(REPO, "build", "bulk_%d_seed%d" % (
+        BULK["length"], BULK["seed"]), "m")
+    if not os.path.exists(prefix + ".bam.bai"):
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
+        t0 = time.perf_counter()
+        bulk_dataset(prefix, **BULK)
+        say("dataset generated in %.1f s" % (time.perf_counter() - t0))
+    args = ["-i", prefix + ".bam", "-r", prefix + ".fa"]
+    host_vcf = os.path.join(OUT, "bulk.host.vcf")
+    dev_vcf = os.path.join(OUT, "bulk.torch.vcf")
+    t_host = run_cli(args + ["-o", host_vcf], "host")
+
+    timing.timing_enable(True)
+    timing.reset()
+    with Recorder() as rec:
+        _build.reset_launches()
+        t_dev = run_cli(args + ["-o", dev_vcf], "torch")
+        launches = dict(_build.LAUNCHES)
+    snap = timing.report(file=io.StringIO())   # the driver printed it
+    timing.timing_enable(False)
+
+    same_files(dev_vcf, host_vcf)
+    n, snv, cnv = count_rows(dev_vcf)
+    if snv < 1 or cnv < 1:
+        raise AssertionError("real-size run emitted %d SNV and %d CNV rows"
+                             % (snv, cnv))
+    say("VCF and .ctx.vcf byte-identical: %d rows (%d SNV, %d CNV)"
+        % (n, snv, cnv))
+    say("wall: host engine %.2f s, torch engine %.2f s" % (t_host, t_dev))
+    say("launches in the torch run:", json.dumps(launches))
+    for k in KERNELS:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError("kernel %s was not launched" % k)
+    tiles = math.ceil(BULK["length"] / (1 << 18))
+    if launches["tile_accumulate"] < tiles:
+        raise AssertionError("%d tile launches < %d tiles"
+                             % (launches["tile_accumulate"], tiles))
+    wall = lambda k: snap.get(k, (0.0,))[0]
+    cnv_s = wall("call.cnv")
+    scan_s = wall("cnv.winscan_dev")
+    seed_s = wall("cnv.seed_eval_dev")
+    say("CNV stage %.2f s: window scans %.2f s, of which seed_eval "
+        "launches %.2f s and the host outer walk %.2f s (%.1f%% of the "
+        "CNV stage)" % (cnv_s, scan_s, seed_s, scan_s - seed_s,
+                        100.0 * (scan_s - seed_s) / max(cnv_s, 1e-9)))
+
+    say("-- kernels against their plain versions (inputs of this run; "
+        "tolerance: integers exact, f64 bitwise)")
+    res = check_kernels(rec, "real-size", timed=True)
+    for k, row in res.items():
+        row["launches"] = launches[k]
+    torch.cuda.synchronize()
+    return res
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(REPO, "grom_tpu_torch")):
+        print("chip_smoke.py: grom_tpu_torch is not beside this script; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    # grom_tpu's slab allocator would keep a warm pool in /dev/shm; keep
+    # every file of the run under the checkout
+    os.environ.setdefault("GROM_TPU_SHM_POOL", "0")
+    shutil.rmtree(OUT, ignore_errors=True)
+    os.makedirs(OUT)
+    t0 = time.perf_counter()
+    smi = phase_toolchain()
+    phase_build()
+    phase_cnvrich_kernels()
+    phase_fixtures()
+    res = phase_real_size()
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    say("== done in %.1f s" % (time.perf_counter() - t0))
+    say(smi)
+    table = [dict(name=k, route="cuda", source=KERNELS[k][0],
+                  replaces=KERNELS[k][1], launches=res[k]["launches"],
+                  max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
+                  plain_ms=res[k]["plain_ms"]) for k in KERNELS]
+    say(json.dumps({"kernels": table}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

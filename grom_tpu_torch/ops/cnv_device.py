@@ -1,0 +1,715 @@
+"""CNV kernels on the device (the counterpart of grom_tpu/ops/cnv_device.py):
+per-base z-scores, per-seed window evaluation under the host outer walk,
+and the null window-length model.
+
+Each kernel has a wrapper that dispatches on the device of its inputs —
+CUDA tensors go to ``csrc/cnv.cu``, CPU tensors to the plain torch version
+beside it — and both are held to the host engine's bits:
+
+* ``zscores``: the midrank z of every base, bitwise equal to the host and to
+  grom_tpu's ``zscores_device`` under x64.
+* ``seed_eval``: first-fail offset, first-window score and grow-phase
+  totals of every (seed, outer class), accumulated sequentially in f64.
+* ``null_model``: per-length null window stdev, held to the host's
+  ``call/cnv.py:_null_window_model`` (sequential per-segment prefixes and
+  one owner per window length; no float atomics).
+
+``window_scan`` is the host outer walk of grom_tpu's ``window_scan_device``
+(seed acceptance order, jumps, slide, trim) over ``seed_eval``'s outcomes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from grom_tpu_torch import _build
+
+_BLOCK = 256
+
+
+def build_bin_matrix(hi_arr: List[np.ndarray], lo_arr: List[np.ndarray],
+                     nb: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad the per-(class, gc) sorted depth distributions into a dense
+    [2*nb, maxn] int64 matrix (sentinel int64-max) + lengths [2*nb]."""
+    arrs = list(hi_arr) + list(lo_arr)
+    lens = np.array([len(a) for a in arrs], np.int64)
+    maxn = max(1, int(lens.max()) if len(lens) else 1)
+    mat = np.full((2 * nb, maxn), np.iinfo(np.int64).max, np.int64)
+    for i, a in enumerate(arrs):
+        if len(a):
+            mat[i, :len(a)] = a
+    return mat, lens
+
+
+class CnvTables(NamedTuple):
+    """The z stage's lookup tables on one device: ``mat`` int64 [2 nb,
+    maxn] (rows sorted ascending over their length), ``lens`` int64
+    [2 nb], ``ave``/``std`` f64 [2 nb], ``pv_p`` (non-decreasing) and
+    ``pv_sd`` f64 [P] (the pval2sd table)."""
+    mat: torch.Tensor
+    lens: torch.Tensor
+    ave: torch.Tensor
+    std: torch.Tensor
+    pv_p: torch.Tensor
+    pv_sd: torch.Tensor
+
+
+class SeedInputs(NamedTuple):
+    """Per-base inputs of ``seed_eval`` over the whole chromosome [L]:
+    ``svals`` f64 (side-signed weighted z), ``lowa`` bool (low_acgt == 0),
+    ``sok0``/``sok1`` bool (per-class seed thresholds), ``gcls_idx`` int64
+    (last gated-definite position at or before p, -1 if none),
+    ``gcls_val`` int8 (its class); ``win_std`` f64 [maxw + 1]."""
+    svals: torch.Tensor
+    lowa: torch.Tensor
+    sok0: torch.Tensor
+    sok1: torch.Tensor
+    gcls_idx: torch.Tensor
+    gcls_val: torch.Tensor
+    win_std: torch.Tensor
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("cnv")
+    P, I, Lg, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, \
+        ctypes.c_double
+    _build.bind(lib, "gt_zscores",
+                [P] * 11 + [Lg, Lg, I, I, I, D, I, P, P, P, P])
+    _build.bind(lib, "gt_seed_eval",
+                [P] * 7 + [Lg, Lg, Lg, D, Lg, P, P, Lg] + [P] * 6)
+    _build.bind(lib, "gt_null_prefix", [P] * 4 + [Lg, Lg] + [P] * 5)
+    _build.bind(lib, "gt_null_accum", [P] * 6 + [Lg, Lg, Lg, P, P, P])
+    return lib
+
+
+def _require(name: str, x: torch.Tensor, dtype, device) -> None:
+    if x.dtype != dtype or x.device != device or not x.is_contiguous():
+        raise ValueError("%s must be a contiguous %s tensor on %s (got %s "
+                         "on %s)" % (name, dtype, device, x.dtype, x.device))
+
+
+def _dispatch(x: torch.Tensor, name: str) -> str:
+    kind = x.device.type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError("%s runs on cuda or cpu tensors, not %s"
+                         % (name, kind))
+    return kind
+
+
+# ---------------------------------------------------------------------------
+# z-scores
+# ---------------------------------------------------------------------------
+
+def zscores_plain(depth, mq, gc, low_acgt, w, tables: CnvTables, nb: int,
+                  min_mapq: int, dup_thr_factor: float, ranks: bool
+                  ) -> torch.Tensor:
+    """Per-base z over one block in plain torch. ``depth`` int32, ``mq``
+    int16, ``gc`` int8, ``low_acgt`` int8, ``w`` f64 (the host-side mapq
+    weight), all [n]. Returns f64 [n]."""
+    dev = depth.device
+    i64, f64 = torch.int64, torch.float64
+    n = depth.shape[0]
+    d = depth.to(i64)
+    m = mq.to(i64)
+    g = gc.to(i64)
+    lens = tables.lens
+    hi_mq = m >= min_mapq
+    defz = torch.where(hi_mq, 0, torch.where(d > 0, 1, -1))
+    k_elig = torch.where(hi_mq, 0, nb) + g
+    eligible = (low_acgt == 0) & (lens[k_elig] > 1)
+    # sticky class: forward fill of defz at eligible definite positions
+    idx = torch.arange(n, device=dev)
+    fi = torch.cummax(torch.where(eligible & (defz >= 0), idx, -1), 0).values
+    last_cls = torch.where(fi >= 0, defz[fi.clamp(min=0)], 0)
+    cls = torch.where(defz >= 0, defz, last_cls)
+    k = cls * nb + g
+    nk = lens[k]
+    valid = eligible & (nk > 0)
+    av = tables.ave[k]
+    dd = d.to(f64)
+    below = dd < av
+    clamp = dup_thr_factor * av
+    if ranks:
+        key_l = torch.where(dd > clamp, clamp.to(i64), d)
+        # per-row searches: each base searches its (class, gc) row
+        ss_d_r = torch.zeros(n, dtype=i64, device=dev)
+        ss_d_l = torch.zeros(n, dtype=i64, device=dev)
+        ss_k_l = torch.zeros(n, dtype=i64, device=dev)
+        for kk in torch.unique(k[valid]).tolist():
+            sel = torch.nonzero(valid & (k == kk)).squeeze(1)
+            row = tables.mat[kk, :int(lens[kk])].contiguous()
+            ss_d_r[sel] = torch.searchsorted(row, d[sel], right=True)
+            ss_d_l[sel] = torch.searchsorted(row, d[sel], right=False)
+            ss_k_l[sel] = torch.searchsorted(row, key_l[sel], right=False)
+
+        def fx(s):
+            return torch.where((nk == 2) & (s == 0), 1, s)
+
+        bi = torch.where(below, fx(ss_d_r), nk - fx(ss_k_l))
+        bi2 = torch.where(below, fx(ss_d_l), nk - fx(ss_d_r))
+        di = torch.where(bi <= 0, 0.5, bi.to(f64))
+        di2 = torch.where(bi2 <= 0, 0.5, bi2.to(f64))
+        prob = (di + di2) / (2.0 * nk.to(f64))
+        P = tables.pv_p.shape[0]
+        pi = torch.searchsorted(tables.pv_p, prob, right=True).clamp(0, P - 1)
+        base = torch.where(below, tables.pv_sd[pi], -tables.pv_sd[pi])
+    else:
+        sb = tables.std[k]
+        nz = sb != 0.0
+        plain = torch.where(nz, (av - dd) / sb, 0.0)
+        clamped = torch.where(nz, (dup_thr_factor - 1.0) * (-av) / sb, 0.0)
+        base = torch.where(below | ~(dd > clamp), plain, clamped)
+    return torch.where(valid, w * base, 0.0)
+
+
+def _zscores_cuda(depth, mq, gc, low_acgt, w, tables: CnvTables, nb: int,
+                  min_mapq: int, dup_thr_factor: float, ranks: bool
+                  ) -> torch.Tensor:
+    dev = depth.device
+    for name, x, dt in (("depth", depth, torch.int32),
+                        ("mq", mq, torch.int16), ("gc", gc, torch.int8),
+                        ("low_acgt", low_acgt, torch.int8),
+                        ("w", w, torch.float64),
+                        ("mat", tables.mat, torch.int64),
+                        ("lens", tables.lens, torch.int64),
+                        ("ave", tables.ave, torch.float64),
+                        ("std", tables.std, torch.float64),
+                        ("pv_p", tables.pv_p, torch.float64),
+                        ("pv_sd", tables.pv_sd, torch.float64)):
+        _require(name, x, dt, dev)
+    lib = _lib()
+    n = int(depth.shape[0])
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    nblk = max((n + _BLOCK - 1) // _BLOCK, 1)
+    block_last = torch.empty(nblk, dtype=torch.int64, device=dev)
+    carry = torch.empty(nblk, dtype=torch.int64, device=dev)
+    _build.check(lib, lib.gt_zscores(
+        depth.data_ptr(), mq.data_ptr(), gc.data_ptr(), low_acgt.data_ptr(),
+        w.data_ptr(), tables.mat.data_ptr(), tables.lens.data_ptr(),
+        tables.ave.data_ptr(), tables.std.data_ptr(), tables.pv_p.data_ptr(),
+        tables.pv_sd.data_ptr(), n, int(tables.mat.shape[1]),
+        int(tables.pv_p.shape[0]), nb, min_mapq, float(dup_thr_factor),
+        1 if ranks else 0, block_last.data_ptr(), carry.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(dev)), "zscores")
+    _build.LAUNCHES["zscores"] += 1
+    return out
+
+
+def zscores(depth, mq, gc, low_acgt, w, tables: CnvTables, nb: int,
+            min_mapq: int, dup_thr_factor: float, ranks: bool
+            ) -> torch.Tensor:
+    """Per-base z over one block: the CUDA kernel for CUDA tensors,
+    ``zscores_plain`` for CPU tensors."""
+    if _dispatch(depth, "zscores") == "cuda":
+        return _zscores_cuda(depth, mq, gc, low_acgt, w, tables, nb,
+                             min_mapq, dup_thr_factor, ranks)
+    return zscores_plain(depth, mq, gc, low_acgt, w, tables, nb, min_mapq,
+                         dup_thr_factor, ranks)
+
+
+# ---------------------------------------------------------------------------
+# seed evaluation
+# ---------------------------------------------------------------------------
+
+def _min_table(P: torch.Tensor) -> List[torch.Tensor]:
+    """Sparse table of range minima: ``tab[k][x] = min(P[x:x + 2**k])``
+    (over the shorter tail near the end)."""
+    tab = [P]
+    h = 1
+    while 2 * h <= P.shape[0]:
+        prev = tab[-1]
+        cur = prev.clone()
+        cur[:-h] = torch.minimum(prev[:-h], prev[h:])
+        tab.append(cur)
+        h *= 2
+    return tab
+
+
+def _first_at_most(P, tab, a, e, t):
+    """Per query, the first x in [a, e] with P[x] <= t, else -1: binary
+    lifting over the sparse table, skipping blocks whose minimum is above
+    the threshold."""
+    last = P.shape[0] - 1
+    x = a.clone()
+    for k in range(len(tab) - 1, -1, -1):
+        step = 1 << k
+        adv = (x + (step - 1) <= e) & (tab[k][x.clamp(max=last)] > t)
+        x = torch.where(adv, x + step, x)
+    hit = (x <= e) & (P[x.clamp(max=last)] <= t)
+    return torch.where(hit, x, -1)
+
+
+_CHUNK = 256     # window offsets per step of the f64 pass
+
+
+def seed_eval_plain(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
+                    max_low: float, be: int):
+    """First-window + grow phases of every seed, in plain torch. Returns
+    (f1 int64, begin bool, c_end int64, c_sd f64, n int64), each [NS].
+
+    The integer half needs no walk: ``2 * (gated bases before j) - j`` is a
+    +-1 walk over the window, and the first fail is where it first reaches
+    -1, found per seed by binary lifting over prefix sums (the seed's outer
+    class up to its first gated-definite base, the global class from
+    there). The f64 half walks only the seeds that can begin (first fail at
+    or past minw, some non-zero z in the window), in chunks of offsets; the
+    running total is a ``torch.cumsum`` seeded with the carry, sequential
+    on the CPU, so it is accumulated in the host's order. A chunk's grow
+    scores are evaluated only for seeds whose running total could reach
+    3 there (an exact bound: the total must exceed 2.9 x the smallest
+    count x window stdev of the chunk)."""
+    dev = seeds.device
+    i64, f64 = torch.int64, torch.float64
+    NS = seeds.shape[0]
+    L = si.svals.shape[0]
+    n = (be - seeds).clamp(min=minw, max=maxw)
+    f1 = n.clone()
+    zero = torch.zeros(NS, dtype=i64, device=dev)
+    if NS == 0:
+        return (f1, torch.zeros(0, dtype=torch.bool, device=dev), zero,
+                torch.zeros(0, dtype=f64, device=dev), n)
+
+    # ---- the positions every window reaches, with "no data" (as grom_tpu
+    # pads them) past the chromosome end and one chunk past the last window
+    lo = int(seeds.min())
+    hi = int((seeds + n).max())
+    top = min(hi, L)
+
+    def span(x, fill):
+        pad = torch.full((hi - top + _CHUNK + 1,), fill, dtype=x.dtype,
+                         device=dev)
+        return torch.cat([x[lo:top], pad])
+
+    def prefix(x):
+        return torch.cat([torch.zeros(1, dtype=i64, device=dev),
+                          torch.cumsum(x.to(i64), 0)])
+
+    lw = span(si.lowa, False)
+    inc = torch.stack([lw & span(si.sok0, False), lw & span(si.sok1, False)])
+    incg = torch.where(span(si.gcls_val, 0) == 0, inc[0], inc[1])
+    sv = span(si.svals, 0.0)
+    zl = torch.where(lw, sv, 0.0)
+    b = seeds - lo
+    # windows read the outer class up to the first gated-definite base at
+    # or after the seed (gcls_idx is a running maximum), the global after
+    g = torch.searchsorted(si.gcls_idx[lo:top].contiguous(), seeds)
+
+    # ---- first fail: the +-1 walk first reaching -1 --------------------
+    Pg = prefix(2 * incg.to(i64) - 1)
+    tg = _min_table(Pg)
+    for c in (0, 1):
+        r = torch.nonzero(seed_cls == c).squeeze(1)
+        if r.numel() == 0:
+            continue
+        Pm = prefix(2 * inc[c].to(i64) - 1)
+        br, gr, nr = b[r], g[r], n[r]
+        # outer class: positions b .. g - 1
+        xa = _first_at_most(Pm, _min_table(Pm), br + 1,
+                            torch.minimum(gr, br + nr), Pm[br] - 1)
+        # global class from g on, continuing the walk
+        xb = _first_at_most(Pg, tg, gr + 1, br + nr,
+                            Pg[gr] - (Pm[gr] - Pm[br]) - 1)
+        x = torch.where(xa >= 0, xa, xb)
+        f1[r] = torch.where(x >= 0, x - br - 1, nr)
+
+    # ---- f64 running totals of the seeds that can begin -----------------
+    PL = prefix(lw)
+    low_count0 = PL[b + minw] - PL[b]
+    pos_sv, pos_zl = prefix(sv > 0.0), prefix(zl > 0.0)
+    fc = f1.clamp(min=minw)
+    # a score of 3 needs a positive running total, so some positive z in
+    # the window (a sum of terms <= 0 stays <= 0 in any rounding); the
+    # first window also needs gated bases, and so does the grow phase past
+    # it (its good bases are gated)
+    nz = ((pos_sv[b + minw] - pos_sv[b])
+          + (pos_zl[b + fc] - pos_zl[b + minw]) > 0)
+    grows = (f1 > minw) & (PL[b + fc] - PL[b + minw] > 0) & nz
+    firsts = (f1 >= minw) & (low_count0 > 0) & nz
+    f_end = torch.where(grows, f1, torch.where(firsts, minw, 0))
+    live = f_end > 0
+    lt = torch.zeros(NS, dtype=f64, device=dev)
+    low_total0 = torch.zeros(NS, dtype=f64, device=dev)
+    any_good = torch.zeros(NS, dtype=torch.bool, device=dev)
+    lastg = torch.full((NS,), -1, dtype=i64, device=dev)
+    c_sd_grow = torch.zeros(NS, dtype=f64, device=dev)
+    ws = si.win_std
+    live = torch.nonzero(live).squeeze(1)
+    j0 = 0
+    while live.numel():
+        J = torch.arange(j0, j0 + _CHUNK, device=dev)
+        bl = b[live]
+        q = bl[:, None] + J
+        alive = J < f_end[live][:, None]
+        contrib = zl[q]
+        if j0 < minw:
+            contrib = torch.where(J < minw, sv[q], contrib)
+        ltc = torch.cumsum(torch.cat([lt[live][:, None], contrib], 1),
+                           1)[:, 1:]
+        if j0 <= minw - 1 < j0 + _CHUNK:
+            low_total0[live] = ltc[:, minw - 1 - j0]
+        wl = J + 1
+        wsg = ws[wl.clamp(max=maxw)]
+        col = (J >= minw) & (wsg > 0.0)
+        if bool(col.any()):
+            # lower bound of the gated count over the chunk
+            lcb = low_count0[live] + PL[bl + max(j0, minw)] - PL[bl + minw]
+            top_lt = torch.where(alive & col, ltc, -torch.inf).max(1).values
+            cand = (top_lt > 0.0) & (
+                (lcb <= 0) | (top_lt >= 2.9 * lcb.to(f64) * wsg[col].min()))
+            # no gated base at all up to the chunk's end: no good base
+            lce = low_count0[live] + PL[bl + (f_end[live] - j0).clamp(
+                max=_CHUNK) + j0] - PL[bl + minw]
+            cand &= lce > 0
+            if bool(cand.any()):
+                cl = live[cand]
+                qc = q[cand]
+                lc = (low_count0[cl] - PL[b[cl] + minw])[:, None] + PL[qc + 1]
+                incw = torch.where(qc >= g[cl][:, None], incg[qc],
+                                   inc[seed_cls[cl].to(i64)[:, None], qc])
+                tsg = torch.where((lc > 0) & (wsg > 0.0),
+                                  ltc[cand] / (lc.to(f64) * wsg), 0.0)
+                good = (alive[cand] & col & incw & (tsg >= 3.0)
+                        & ((wl - lc).to(f64) / wl <= max_low))
+                hit = good.any(1)
+                if bool(hit.any()):
+                    gl = cl[hit]
+                    tmax = torch.where(good[hit], tsg[hit],
+                                       -torch.inf).max(1).values
+                    lastg[gl] = j0 + (_CHUNK - 1 - good[hit].flip(1).to(
+                        torch.uint8).argmax(1))
+                    better = ~any_good[gl] | (tmax > c_sd_grow[gl])
+                    c_sd_grow[gl[better]] = tmax[better]
+                    any_good[gl] = True
+        last = (f_end[live] - j0).clamp(max=_CHUNK) - 1
+        lt[live] = ltc[torch.arange(live.numel(), device=dev), last]
+        live = live[f_end[live] > j0 + _CHUNK]
+        j0 += _CHUNK
+
+    ws_min = ws[minw]
+    ts0 = torch.where((low_count0 > 0) & (ws_min > 0.0),
+                      low_total0 / (low_count0.to(f64) * ws_min), 0.0)
+    begin0 = ((f1 >= minw) & (low_count0 > 0) & (ws_min > 0.0)
+              & (ts0 >= 3.0)
+              & ((minw - low_count0).to(f64) / minw <= max_low))
+    c_sd = torch.where(begin0, ts0, 0.0)
+    c_sd = torch.where(any_good & (c_sd_grow > c_sd), c_sd_grow, c_sd)
+    begin = begin0 | any_good
+    c_end = torch.where(any_good, seeds + lastg,
+                        torch.where(begin0, seeds + minw, 0))
+    return f1, begin, c_end, c_sd, n
+
+
+def _seed_eval_cuda(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
+                    max_low: float, be: int):
+    dev = seeds.device
+    for name, dt in (("svals", torch.float64), ("lowa", torch.bool),
+                     ("sok0", torch.bool), ("sok1", torch.bool),
+                     ("gcls_idx", torch.int64), ("gcls_val", torch.int8),
+                     ("win_std", torch.float64)):
+        _require(name, getattr(si, name), dt, dev)
+    _require("seeds", seeds, torch.int64, dev)
+    _require("seed_cls", seed_cls, torch.int8, dev)
+    if si.win_std.shape[0] != maxw + 1:
+        raise ValueError("win_std must hold maxw + 1 entries")
+    lib = _lib()
+    NS = int(seeds.shape[0])
+    f1 = torch.empty(NS, dtype=torch.int64, device=dev)
+    begin = torch.empty(NS, dtype=torch.bool, device=dev)
+    c_end = torch.empty(NS, dtype=torch.int64, device=dev)
+    c_sd = torch.empty(NS, dtype=torch.float64, device=dev)
+    n = torch.empty(NS, dtype=torch.int64, device=dev)
+    _build.check(lib, lib.gt_seed_eval(
+        si.svals.data_ptr(), si.lowa.data_ptr(), si.sok0.data_ptr(),
+        si.sok1.data_ptr(), si.gcls_idx.data_ptr(), si.gcls_val.data_ptr(),
+        si.win_std.data_ptr(), int(si.svals.shape[0]), minw, maxw,
+        float(max_low), be, seeds.data_ptr(), seed_cls.data_ptr(), NS,
+        f1.data_ptr(), begin.data_ptr(), c_end.data_ptr(), c_sd.data_ptr(),
+        n.data_ptr(), _build.stream_ptr(dev)), "seed_eval")
+    _build.LAUNCHES["seed_eval"] += 1
+    return f1, begin, c_end, c_sd, n
+
+
+def seed_eval(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
+              max_low: float, be: int):
+    """Every seed's window outcome (see ``seed_eval_plain``): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if _dispatch(seeds, "seed_eval") == "cuda":
+        return _seed_eval_cuda(si, seeds, seed_cls, minw, maxw, max_low, be)
+    return seed_eval_plain(si, seeds, seed_cls, minw, maxw, max_low, be)
+
+
+def seed_inputs(depth, mq, gc, low_acgt, stdev_list, thr, win_std, cfg,
+                L: int, side: int, device):
+    """Host-side per-base state of the window scan (numpy) and its device
+    copy. Returns (defc, gcls_idx, sok0, sok1, svals, lowa, SeedInputs)."""
+    defc = np.where(mq >= cfg.min_mapq, np.int8(0),
+                    np.where(depth > 0, np.int8(1), np.int8(-1)))
+    idx = np.arange(L, dtype=np.int64)
+    lowa = low_acgt == 0
+    gcls_idx = np.where(lowa & (defc >= 0), idx, np.int64(-1))
+    np.maximum.accumulate(gcls_idx, out=gcls_idx)
+    gcls_val = defc[np.maximum(gcls_idx, 0)]
+    if side > 0:
+        sok0 = depth <= thr[0, gc]
+        sok1 = depth <= thr[1, gc]
+    else:
+        sok0 = depth >= thr[0, gc]
+        sok1 = depth >= thr[1, gc]
+    svals = side * stdev_list
+    to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(
+        device)
+    si = SeedInputs(svals=to(svals, np.float64), lowa=to(lowa, np.bool_),
+                    sok0=to(sok0, np.bool_), sok1=to(sok1, np.bool_),
+                    gcls_idx=to(gcls_idx, np.int64),
+                    gcls_val=to(gcls_val, np.int8),
+                    win_std=to(win_std, np.float64))
+    return defc, gcls_idx, sok0, sok1, svals, lowa, si
+
+
+# Seeds per seed_eval launch of the window scan: the walk evaluates the
+# candidates from the first seed it needs onward, in the outer class it
+# needs. Large batches fill the card; on the CPU the plain version pays for
+# every seed it evaluates, and smaller batches skip the seeds inside calls.
+SEED_BATCH = {"cuda": 1 << 16, "cpu": 1 << 10}
+
+
+def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
+                win_std, cfg, L, side: int, device) -> list:
+    """Drop-in for call/cnv._window_scan with the per-seed window math in
+    ``seed_eval``: candidate seeds are evaluated in batches, from the first
+    seed the walk needs onward and in the outer class it needs there, and
+    the host outer walk consumes the outcomes in the reference's order
+    (jump/suppression after each emitted call), keeping the rare
+    slide/trim phases sequential."""
+    from grom_tpu.call.cnv import CnvCall, _slide_phase, _trim_phase
+    from grom_tpu.utils.timing import phase
+
+    minw = cfg.min_rd_window_len
+    maxw = cfg.max_rd_window_len
+    max_low = cfg.max_rd_low_acgt_or_windows
+    out = []
+    defc, gcls_idx, sok0, sok1, svals, lowa, si = seed_inputs(
+        depth, mq, gc, low_acgt, stdev_list, thr, win_std, cfg, L, side,
+        device)
+    batch = SEED_BATCH[torch.device(device).type]
+
+    for (bs, be0) in blocks:
+        be = be0 - minw
+        if be <= bs:
+            continue
+        cand = np.flatnonzero((sok0 | sok1)[bs:be]) + bs
+        if not len(cand):
+            continue
+        pos_to_i = {int(p): i for i, p in enumerate(cand)}
+        batches = {0: (0, 0, None), 1: (0, 0, None)}
+
+        def evaluate(i0, cls):
+            """Outcomes of candidates [i0, i0 + batch) in outer class
+            ``cls``."""
+            i1 = min(i0 + batch, len(cand))
+            with phase("cnv.seed_eval_dev"):
+                seeds = torch.from_numpy(cand[i0:i1]).to(device)
+                cls_t = torch.full((i1 - i0,), cls, dtype=torch.int8,
+                                   device=device)
+                r = [x.cpu().numpy() for x in seed_eval(
+                    si, seeds, cls_t, minw, maxw, max_low, be)]
+            return i0, i1, r
+
+        # host outer walk (reference order; src/GROM.c:19358-19380)
+        mq_index = 0
+        pos = bs
+        while pos < be:
+            dc = defc[pos]
+            if dc >= 0:
+                mq_index = int(dc)
+            sok_cls = sok0 if mq_index == 0 else sok1
+            if not sok_cls[pos]:
+                pos += 1
+                continue
+            i = pos_to_i[pos]
+            b_lo, b_hi, res = batches[mq_index]
+            if not b_lo <= i < b_hi:
+                b_lo, b_hi, res = batches[mq_index] = evaluate(i, mq_index)
+            k = i - b_lo
+            f1, begin, c_end, c_sd, n = (int(res[0][k]), bool(res[1][k]),
+                                         int(res[2][k]), float(res[3][k]),
+                                         int(res[4][k]))
+            if f1 < minw:
+                pos = pos + f1 + 1
+                continue
+            stop_base = f1 < n or n < maxw
+            lp = pos + f1 if f1 < n else pos + n - 1
+            q = gcls_idx[lp]
+            mqi = int(defc[q]) if q >= pos else mq_index
+            last_good = c_end if begin else 0
+            if not stop_base and begin:
+                c_end, c_sd, last_good, mqi = _slide_phase(
+                    pos, maxw, L, maxw + 500, last_good, c_end, c_sd, mqi,
+                    mq, depth, lowa, nwin, gc, svals, win_std, cfg,
+                    3.0, max_low)
+            if begin:
+                c_end, _ = _trim_phase(pos, c_end, minw, mqi, mq, depth,
+                                       lowa, sok0, sok1, cfg, max_low)
+                out.append(CnvCall(pos, c_end, c_sd))
+                pos = c_end + 2
+            else:
+                pos += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# null window model
+# ---------------------------------------------------------------------------
+
+class NullSegments(NamedTuple):
+    """The null model's window segments in the host's walk order: start,
+    length, window length carried in (``w``) and whether the carry resets
+    (int64/bool numpy arrays [S])."""
+    s: np.ndarray
+    n: np.ndarray
+    w: np.ndarray
+    reset: np.ndarray
+
+
+def null_segments(lowvar_blocks, maxw: int, sampling_rate: int
+                  ) -> NullSegments:
+    """Window boundaries per (block, phase): pure modular arithmetic,
+    mirroring the host loop's carry rules (call/cnv.py:_null_window_model;
+    a block resets the carry, a phase does not)."""
+    seg_s, seg_n, seg_w = [], [], []
+    for (bs, be) in lowvar_blocks:
+        wl0 = 0
+        for phase in range(sampling_rate):
+            s = bs + phase * maxw // sampling_rate
+            while s < be:
+                e = min(s + maxw - wl0, be)
+                seg_s.append(s)
+                seg_n.append(e - s)
+                seg_w.append(wl0)
+                if wl0 + (e - s) < maxw:
+                    wl0 += e - s
+                    break
+                wl0 = 0
+                s = e
+    w = np.asarray(seg_w, np.int64)
+    return NullSegments(np.asarray(seg_s, np.int64),
+                        np.asarray(seg_n, np.int64), w, w == 0)
+
+
+def _carries(seg: NullSegments, lo: int, hi: int, seg_z: np.ndarray,
+             seg_c: np.ndarray, run: list) -> Tuple[np.ndarray, np.ndarray]:
+    """tot0/cnt0 of segments [lo, hi) in the host's order: the running
+    total since the last reset, continued from ``run`` = [z, c]."""
+    tot0 = np.zeros(hi - lo)
+    cnt0 = np.zeros(hi - lo, np.int64)
+    rz, rc = run
+    for i in range(lo, hi):
+        if seg.reset[i]:
+            rz, rc = 0.0, 0
+        tot0[i - lo] = rz
+        cnt0[i - lo] = rc
+        rz = rz + float(seg_z[i - lo])
+        rc = rc + int(seg_c[i - lo])
+    run[0], run[1] = rz, rc
+    return tot0, cnt0
+
+
+def _finish(sums: np.ndarray, counts: np.ndarray, minw: int) -> np.ndarray:
+    win_std = np.zeros(len(sums))
+    sel = counts > 1
+    win_std[sel] = np.sqrt(sums[sel] / (counts[sel] - 1))
+    win_std[:minw] = 0.0
+    return win_std
+
+
+def null_model_plain(z, gate, seg: NullSegments, minw: int, maxw: int,
+                     batch: int = 1024) -> np.ndarray:
+    """Null window stdev in plain torch: per segment, the sequential prefix
+    of gated z (``torch.cumsum``, sequential on the CPU) and of counts; per
+    length, squared window means added in segment order. Returns f64
+    [maxw + 1] (numpy)."""
+    dev = z.device
+    f64, i64 = torch.float64, torch.int64
+    L = z.shape[0]
+    zg = torch.where(gate, z, 0.0)
+    cg = gate.to(i64)
+    sums = torch.zeros(maxw + 1, dtype=f64, device=dev)
+    counts = torch.zeros(maxw + 1, dtype=i64, device=dev)
+    j = torch.arange(maxw, device=dev)
+    run = [0.0, 0]
+    S = len(seg.s)
+    for b0 in range(0, S, batch):
+        b1 = min(b0 + batch, S)
+        s = torch.from_numpy(seg.s[b0:b1]).to(dev)
+        nn = torch.from_numpy(seg.n[b0:b1]).to(dev)
+        act = j[None, :] < nn[:, None]
+        x = torch.where(act, s[:, None] + j[None, :], 0).clamp(max=L - 1)
+        pz = torch.cumsum(torch.where(act, zg[x], 0.0), 1)
+        pc = torch.cumsum(torch.where(act, cg[x], 0), 1)
+        last = nn - 1
+        rows = torch.arange(b1 - b0, device=dev)
+        tot0, cnt0 = _carries(seg, b0, b1, pz[rows, last].cpu().numpy(),
+                              pc[rows, last].cpu().numpy(), run)
+        for i in range(b1 - b0):
+            ni = int(seg.n[b0 + i])
+            lens = int(seg.w[b0 + i]) + 1 + j[:ni]
+            c = int(cnt0[i]) + pc[i, :ni]
+            ok = (lens >= minw) & (c > 0)
+            v = (float(tot0[i]) + pz[i, :ni][ok]) / c[ok].to(f64)
+            sums.index_add_(0, lens[ok], v * v)
+            counts.index_add_(0, lens[ok], torch.ones_like(lens[ok]))
+    return _finish(sums.cpu().numpy(), counts.cpu().numpy(), minw)
+
+
+def _null_model_cuda(z, gate, seg: NullSegments, minw: int, maxw: int,
+                     batch: int = 1024) -> np.ndarray:
+    dev = z.device
+    _require("z", z, torch.float64, dev)
+    _require("gate", gate, torch.bool, dev)
+    lib = _lib()
+    stream = _build.stream_ptr(dev)
+    sums = torch.zeros(maxw + 1, dtype=torch.float64, device=dev)
+    counts = torch.zeros(maxw + 1, dtype=torch.int64, device=dev)
+    S = len(seg.s)
+    B = min(batch, max(S, 1))
+    pz = torch.empty((B, maxw), dtype=torch.float64, device=dev)
+    pc = torch.empty((B, maxw), dtype=torch.int32, device=dev)
+    seg_z = torch.empty(B, dtype=torch.float64, device=dev)
+    seg_c = torch.empty(B, dtype=torch.int64, device=dev)
+    run = [0.0, 0]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    for b0 in range(0, S, B):
+        b1 = min(b0 + B, S)
+        nb = b1 - b0
+        s_d, n_d, w_d = (to(seg.s[b0:b1]), to(seg.n[b0:b1]),
+                         to(seg.w[b0:b1]))
+        _build.check(lib, lib.gt_null_prefix(
+            z.data_ptr(), gate.data_ptr(), s_d.data_ptr(), n_d.data_ptr(),
+            nb, maxw, pz.data_ptr(), pc.data_ptr(), seg_z.data_ptr(),
+            seg_c.data_ptr(), stream), "null_prefix")
+        tot0, cnt0 = _carries(seg, b0, b1, seg_z[:nb].cpu().numpy(),
+                              seg_c[:nb].cpu().numpy(), run)
+        t_d, c_d = to(tot0), to(cnt0)
+        _build.check(lib, lib.gt_null_accum(
+            pz.data_ptr(), pc.data_ptr(), n_d.data_ptr(), w_d.data_ptr(),
+            t_d.data_ptr(), c_d.data_ptr(), nb, minw, maxw, sums.data_ptr(),
+            counts.data_ptr(), stream), "null_accum")
+    _build.LAUNCHES["null_model"] += 1
+    return _finish(sums.cpu().numpy(), counts.cpu().numpy(), minw)
+
+
+def null_model(z, gate, seg: NullSegments, minw: int, maxw: int,
+               batch: int = 1024) -> np.ndarray:
+    """Per-length null window stdev, f64 [maxw + 1] (numpy), from the
+    per-base z (f64) and gate (bool) tensors: the CUDA kernel for CUDA
+    tensors, ``null_model_plain`` for CPU tensors. Bitwise equal to the
+    host's ``_null_window_model``."""
+    if _dispatch(z, "null_model") == "cuda":
+        return _null_model_cuda(z, gate, seg, minw, maxw, batch)
+    return null_model_plain(z, gate, seg, minw, maxw, batch)

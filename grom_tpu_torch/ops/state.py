@@ -1,0 +1,81 @@
+"""grom_tpu's numpy state as the port's device tensors.
+
+The tests (and ``chip_smoke.py``) feed grom_tpu's JAX functions and the
+port's kernels the same values through these converters:
+
+* ``tile_from_args``: a tile's padded argument tuple, as
+  ``__graft_entry__.tile_args_from_fixture`` builds it for
+  ``tile_kernel_core``, with the pads stripped to runtime sizes;
+* ``cnv_tables``: the CNV bin matrix, ``bin_len``, ``ave``, ``std`` and the
+  pval2sd table, checked for the order the kernels' binary searches need;
+* ``to_device``: any numpy array as a contiguous tensor on a device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from grom_tpu_torch.ops.accumulate import (TileInputs, screen_threshold,
+                                            to_device)
+from grom_tpu_torch.ops.cnv_device import CnvTables
+
+
+def tile_from_args(args: tuple, statics: dict, device
+                   ) -> Tuple[TileInputs, dict]:
+    """(TileInputs, kernel params) from a padded ``tile_kernel_core``
+    argument tuple and its static kwargs."""
+    (span_read, span_ref, span_off, cum, elig, mapq, flag, lseq, seq_off,
+     seq, qual, name_id, name_len, chrom_up, is_n, gate, min_ratio,
+     n_span) = args
+    S = int(n_span)
+    R = int(span_read[:S].max()) + 1 if S else 0
+    # the tile width is where the appended 0 byte of chrom_up sits
+    L = int(np.argmax(chrom_up == 0))
+    Q = int(min(len(seq), (seq_off[:R].astype(np.int64)
+                           + lseq[:R].astype(np.int64)).max())) if R else 0
+    t = TileInputs(
+        span_read=to_device(span_read[:S], np.int32, device),
+        span_ref=to_device(span_ref[:S], np.int32, device),
+        span_off=to_device(span_off[:S], np.int32, device),
+        cum=to_device(cum[:S + 1], np.int32, device),
+        elig=to_device(elig[:R], np.uint8, device),
+        mapq=to_device(mapq[:R], np.uint8, device),
+        flag=to_device(flag[:R], np.int32, device),
+        lseq=to_device(lseq[:R], np.int32, device),
+        seq_off=to_device(seq_off[:R], np.int32, device),
+        name_id=to_device(name_id[:R], np.int32, device),
+        name_len=to_device(name_len[:R], np.uint8, device),
+        seq=to_device(seq[:Q], np.uint8, device),
+        qual=to_device(qual[:Q], np.uint8, device),
+        chrom_up=to_device(chrom_up[:L], np.uint8, device),
+        is_n=to_device(is_n[:L], np.bool_, device),
+        gate=to_device(gate[:L], np.uint8, device))
+    params = dict(thr=screen_threshold(float(min_ratio)),
+                  min_mapq=statics["min_mapq"], min_bq=statics["min_bq"],
+                  min_snv=statics["min_snv"],
+                  name_len_cap=statics["name_len_cap"])
+    return t, params
+
+
+def cnv_tables(bin_mat: np.ndarray, bin_len: np.ndarray, ave: np.ndarray,
+               std: np.ndarray, pv_p: np.ndarray, pv_sd: np.ndarray,
+               device) -> CnvTables:
+    """The z stage's tables on ``device``. Raises unless every bin row is
+    sorted ascending over its length and pv_p is non-decreasing: the
+    kernels binary-search both."""
+    for k, n in enumerate(bin_len):
+        row = bin_mat[k, :int(n)]
+        if len(row) > 1 and np.any(row[1:] < row[:-1]):
+            raise ValueError("bin row %d is not sorted ascending" % k)
+    if len(pv_p) > 1 and np.any(pv_p[1:] < pv_p[:-1]):
+        raise ValueError("pval2sd probabilities are not non-decreasing")
+    f64 = np.float64
+    return CnvTables(mat=to_device(bin_mat, np.int64, device),
+                     lens=to_device(bin_len, np.int64, device),
+                     ave=to_device(np.reshape(ave, -1), f64, device),
+                     std=to_device(np.reshape(std, -1), f64, device),
+                     pv_p=to_device(pv_p, f64, device),
+                     pv_sd=to_device(pv_sd, f64, device))
+

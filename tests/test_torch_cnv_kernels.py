@@ -1,0 +1,324 @@
+"""The port's CNV kernels (grom_tpu_torch/ops/cnv_device.py) against
+grom_tpu on the same inputs, bitwise:
+
+* ``zscores`` (ranks 1 and 0) and ``seed_eval`` (both outer classes, the
+  full window up to maxw) against grom_tpu's ``zscores_device`` and
+  ``seed_eval_device`` under jax x64;
+* ``null_model`` against the host's ``call/cnv.py:_null_window_model``
+  (and grom_tpu's ``null_model_device`` against the host within 1e-9
+  relative, its known XLA-cumsum drift).
+
+The inputs are the ones the port's CNV stage hands its kernels on the
+cnvrich fixture (captured from a CPU run of its detect_del_dup), plus a
+seeded normal z field for the null model. On the CPU the wrappers run the
+plain versions; chip_smoke.py holds the CUDA kernels to them on the card."""
+
+import contextlib
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from grom_tpu_torch.ops import cnv_device
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of one thread per core would oversubscribe the host
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def _x64():
+    """jax x64 on the CPU for one comparison; the flag is process-global,
+    so it is restored afterwards."""
+    import jax
+    prev = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", True)
+    try:
+        with jax.default_device(jax.devices("cpu")[0]):
+            yield
+    finally:
+        jax.config.update("jax_enable_x64", prev)
+
+
+def _bits(a):
+    a = np.ascontiguousarray(np.asarray(a, np.float64))
+    return a.view(np.uint64)
+
+
+def _cnv_inputs(fixture):
+    """(chrom, host per-base arrays with the rd lists, cfg, drv) of a
+    fixture's first contig, from grom_tpu's host engine."""
+    from grom_tpu.call import scan as scan_mod
+    from grom_tpu.config import DerivedConfig, GromConfig
+    from grom_tpu.driver import _subset_reads
+    from grom_tpu.ingest import bam as bam_mod
+    from grom_tpu.ingest import fasta as fasta_mod
+    from grom_tpu.ingest.batches import build_batch
+    from grom_tpu.ingest.insert_size import load_or_estimate
+    d = os.path.join(DATA, fixture)
+    cfg = GromConfig(bam=os.path.join(d, "ds.bam"),
+                     ref_fasta=os.path.join(d, "ds.fa"), out_vcf="unused.vcf")
+    info = fasta_mod.index_fasta(cfg.ref_fasta)
+    _, reads = bam_mod.read_bam(cfg.bam)
+    ins = load_or_estimate(cfg.bam, reads, cfg)
+    drv = DerivedConfig.from_insert_stats(cfg, ins.insert_mean,
+                                          ins.insert_min, ins.insert_max,
+                                          ins.read_len, ins.mapped_read_bases)
+    chrom = fasta_mod.load_chromosome(cfg.ref_fasta, info, info.names[0])
+    sub = _subset_reads(reads, np.flatnonzero(reads.refid == 0))
+    batch = build_batch(sub, 0, cfg.min_mapq, cfg.add_factor, cfg.rmdup)
+    scan_start, _, _ = scan_mod.scan_bounds(cfg, drv, sub.pos, 0)
+    arr = scan_mod.accumulate_chromosome(chrom, batch, cfg, drv, scan_start)
+    return chrom, arr, cfg, drv
+
+
+@pytest.fixture(scope="module")
+def stage():
+    """Kernel inputs of the port's CNV stage on cnvrich (CPU run), with
+    the calls it emitted."""
+    from grom_tpu.call import cnv as cnv_ref
+    from grom_tpu_torch.call import cnv as tcnv
+
+    chrom, arr, cfg, drv = _cnv_inputs("cnvrich")
+    rec = {"zscores": [], "null_model": [], "seed_eval": []}
+    orig = {k: getattr(cnv_device, k) for k in rec}
+
+    copies = {}
+
+    def snapshot(x):
+        # a CPU tensor may share memory with a numpy array that the stage
+        # goes on to change (the z list is rescored in place); an input
+        # passed to several calls keeps one copy
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            if id(x) not in copies:
+                copies[id(x)] = (x, type(x)(*(snapshot(v) for v in x)))
+            return copies[id(x)][1]
+        return x
+
+    def recorder(name):
+        def f(*a, **k):
+            a = tuple(snapshot(x) for x in a)
+            out = orig[name](*a, **k)
+            rec[name].append((a, k, out))
+            return out
+        return f
+
+    for k in rec:
+        setattr(cnv_device, k, recorder(k))
+    try:
+        feats = cnv_ref.preprocess_reference(chrom, drv.insert_mean,
+                                             cfg.min_repeat)
+        depth = np.add(arr.rd_hi, arr.rd_lo, dtype=np.int32)
+        prep = cnv_ref.prep_cnv(chrom, feats, arr.rd_hi, arr.rd_lo,
+                                arr.rd_mq, cfg, drv, depth=depth)
+        dels, dups = tcnv.detect_del_dup(chrom, feats, prep, cfg, drv,
+                                         cfg.ploidy, depth, "cpu")
+    finally:
+        for k, v in orig.items():
+            setattr(cnv_device, k, v)
+    return types.SimpleNamespace(rec=rec, cfg=cfg, prep=prep, dels=dels,
+                                 dups=dups, L=len(chrom))
+
+
+@pytest.mark.parametrize("ranks", [True, False])
+def test_zscores_match_jax(stage, ranks):
+    from grom_tpu.ops.cnv_device import zscores_device
+    """On a 60 kb window of the stage's z block (JAX's kernel compares
+    every base against a whole padded bin row, so the full block is slow
+    on the CPU); both sides start the sticky class fresh at its edge."""
+    (depth, mq, gc, la, w, tables, nb, min_mapq, dup_f, _), _, _ = \
+        stage.rec["zscores"][0]
+    cfg = stage.cfg
+    a = depth.shape[0] // 3
+    depth, mq, gc, la, w = (x[a:a + 60_000].contiguous()
+                            for x in (depth, mq, gc, la, w))
+    n = depth.shape[0]
+    got = cnv_device.zscores(depth, mq, gc, la, w, tables, nb, min_mapq,
+                             dup_f, ranks).numpy()
+    with _x64():
+        want = zscores_device(
+            depth.numpy(), mq.numpy(), gc.numpy(), la.numpy(),
+            tables.mat.numpy(), tables.lens.numpy(), tables.ave.numpy(),
+            tables.std.numpy(), tables.pv_p.numpy(), tables.pv_sd.numpy(),
+            nb, 0, n, min_mapq, cfg.mapq_factor, dup_f, ranks)
+    assert np.array_equal(_bits(got), _bits(want))
+    assert np.count_nonzero(got) > n // 2
+
+
+@pytest.mark.parametrize("side", [0, 1])
+def test_seed_eval_matches_jax(stage, side):
+    """Both outer classes over the full maxw window, on the del (0) and
+    dup (1) scans: every seed the scan evaluated whose window outlived 512
+    bases (up to 64) plus a seeded sample of the rest."""
+    from grom_tpu.ops.cnv_device import seed_eval_device
+    calls = stage.rec["seed_eval"]
+    sis = []
+    for a, _, _ in calls:
+        if not any(a[0] is x for x in sis):
+            sis.append(a[0])
+    assert len(sis) == 2
+    mine = [c for c in calls if c[0][0] is sis[side]]
+    si, _, _, minw, maxw, max_low, be = mine[0][0]
+    seeds = torch.cat([c[0][1] for c in mine])
+    f1 = torch.cat([c[2][0] for c in mine]).numpy()
+    rng = np.random.default_rng(3 + side)
+    long_ = np.flatnonzero(f1 > 512)
+    long_ = rng.choice(long_, size=min(64, len(long_)), replace=False)
+    rest = rng.choice(len(seeds), size=min(300, len(seeds)), replace=False)
+    pick = seeds[torch.from_numpy(np.union1d(long_, rest))]
+    assert len(long_) > 0
+    sd = torch.cat([pick, pick])
+    cl = torch.cat([torch.zeros(len(pick), dtype=torch.int8),
+                    torch.ones(len(pick), dtype=torch.int8)])
+    got = [x.numpy() for x in cnv_device.seed_eval(si, sd, cl, minw, maxw,
+                                                   max_low, be)]
+    with _x64():
+        want = seed_eval_device(
+            si.svals.numpy(), si.lowa.numpy(), si.sok0.numpy(),
+            si.sok1.numpy(), si.gcls_idx.numpy(), si.gcls_val.numpy(),
+            si.win_std.numpy(), sd.numpy(), cl.numpy(), minw, maxw, max_low,
+            be, width=maxw)
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == np.float64:
+            assert np.array_equal(_bits(g), _bits(w)), k
+        else:
+            assert np.array_equal(g, np.asarray(w)), k
+    assert got[1].any() and (got[0] == maxw).any()
+
+
+def _synthetic_seed_inputs(seed, L=24_000, minw=100, maxw=2000):
+    """Seeded window-scan state with every branch of the seed evaluation:
+    deletion-like blocks (long windows, scores past 3), class switches,
+    z runs that are exactly zero or negative, ungated stretches, zero
+    window stdevs, and windows that run past the chromosome end."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(L)
+    block = (idx // 700) % 5 == 2                 # deletion-like blocks
+    lowa = rng.random(L) < np.where(block, 0.97, 0.85)
+    lowa[(idx // 1900) % 7 == 3] = False          # ungated stretches
+    defc = rng.choice(np.array([-1, 0, 1], np.int8), L, p=[0.1, 0.6, 0.3])
+    defc[(idx // 300) % 4 == 1] = 1               # runs of the other class
+    gcls_idx = np.where(lowa & (defc >= 0), idx, -1)
+    np.maximum.accumulate(gcls_idx, out=gcls_idx)
+    gcls_val = defc[np.maximum(gcls_idx, 0)]
+    p_ok = np.where(block, 0.95, 0.35)
+    sok0 = rng.random(L) < p_ok
+    sok1 = rng.random(L) < np.where(block, 0.9, 0.5)
+    svals = rng.normal(0.0, 1.0, L) + np.where(block, 2.5, 0.0)
+    svals[(idx // 1100) % 6 == 4] = 0.0
+    svals[(idx // 1300) % 9 == 5] *= -1.0
+    win_std = np.zeros(maxw + 1)
+    win_std[minw:] = 1.5 / np.sqrt(np.arange(minw, maxw + 1) / minw)
+    win_std[rng.choice(np.arange(minw, maxw + 1), 40)] = 0.0
+    be = L - 50
+    cand = np.flatnonzero((sok0 | sok1)[:be])
+    seeds = np.sort(rng.choice(cand, 2500, replace=False))
+    seed_cls = rng.integers(0, 2, len(seeds)).astype(np.int8)
+    si = cnv_device.SeedInputs(*(torch.from_numpy(a) for a in (
+        svals, lowa, sok0, sok1, gcls_idx, gcls_val, win_std)))
+    return (si, torch.from_numpy(seeds), torch.from_numpy(seed_cls), minw,
+            maxw, 2.0, be)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_seed_eval_synthetic_matches_jax(seed):
+    from grom_tpu.ops.cnv_device import seed_eval_device
+    si, seeds, cls, minw, maxw, max_low, be = _synthetic_seed_inputs(seed)
+    got = [x.numpy() for x in cnv_device.seed_eval(si, seeds, cls, minw,
+                                                   maxw, max_low, be)]
+    with _x64():
+        want = seed_eval_device(
+            *(x.numpy() for x in si), seeds.numpy(), cls.numpy(), minw,
+            maxw, max_low, be, width=maxw)
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == np.float64:
+            assert np.array_equal(_bits(g), _bits(w)), k
+        else:
+            assert np.array_equal(g, np.asarray(w)), k
+    f1, begin, n = got[0], got[1], got[4]
+    # the branches really ran: calls begun, windows that never failed,
+    # seeds that failed inside the first window
+    assert begin.sum() > 20 and (f1 == n).sum() > 20 and (f1 < minw).any()
+
+
+@pytest.mark.parametrize("field", ["cnvrich_z", "normal"])
+def test_null_model_matches_host(stage, field):
+    from grom_tpu.call.cnv import _null_window_model
+    from grom_tpu.ops.cnv_device import null_model_device
+    (z, gate, seg, minw, maxw), _, _ = stage.rec["null_model"][0]
+    cfg = stage.cfg
+    L = stage.L
+    if field == "normal":
+        z = torch.from_numpy(np.random.default_rng(0).normal(0, 1, L))
+    got = cnv_device.null_model(z, gate, seg, minw, maxw)
+    # the host derives the gate from (low_acgt, nwin, mq, gc): hand it one
+    # that reproduces ``gate`` exactly
+    g = gate.numpy()
+    host = _null_window_model(
+        types.SimpleNamespace(lowvar_blocks=stage.prep.lowvar_blocks), None,
+        np.zeros(L, np.int16), np.zeros(L, np.int64),
+        np.full((2, cfg.num_gc_bins), 2), (~g).astype(np.int8), z.numpy(),
+        cfg, L)
+    assert np.array_equal(_bits(got), _bits(host))
+    assert np.count_nonzero(host) > (maxw - minw) // 2
+    with _x64():
+        jx = null_model_device(stage.prep.lowvar_blocks, z.numpy(), g, minw,
+                               maxw, cfg.sampling_rate)
+    assert np.allclose(jx, host, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("kernel", ["zscores", "seed_eval", "null_model"])
+def test_cnv_wrappers_reject_other_devices(stage, kernel):
+    """A wrapper runs its kernel on CUDA tensors, its plain version on CPU
+    tensors, and refuses any other device."""
+    meta = lambda x: (x.to("meta") if isinstance(x, torch.Tensor) else
+                      type(x)(*(meta(v) for v in x))
+                      if isinstance(x, tuple) and hasattr(x, "_fields")
+                      else x)
+    args, _, _ = stage.rec[kernel][0]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        getattr(cnv_device, kernel)(*(meta(a) for a in args))
+
+
+def test_null_segments_cover_blocks(stage):
+    """Every lowvar block base is walked once per sampling phase, minus
+    the phase offset."""
+    (_, _, seg, _, maxw), _, _ = stage.rec["null_model"][0]
+    rate = stage.cfg.sampling_rate
+    want = sum(max(be - bs - ph * maxw // rate, 0)
+               for bs, be in stage.prep.lowvar_blocks for ph in range(rate))
+    assert int(seg.n.sum()) == want
+    assert seg.reset[0] and (seg.n > 0).all()
+
+
+def test_cnv_stage_emits_calls(stage):
+    assert len(stage.dels) + len(stage.dups) >= 5
+
+
+@pytest.mark.cuda
+def test_cnv_kernels_cuda_match_plain(stage):
+    """On the card: each CUDA kernel, fed the stage's recorded inputs,
+    equals the plain version's CPU output bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cu = lambda x: (x.cuda() if isinstance(x, torch.Tensor) else
+                    type(x)(*(cu(v) for v in x)) if isinstance(x, tuple)
+                    and hasattr(x, "_fields") else x)
+    a, _, want = stage.rec["zscores"][0]
+    got = cnv_device.zscores(*(cu(x) for x in a))
+    assert np.array_equal(_bits(got.cpu()), _bits(want))
+    a, _, want = stage.rec["null_model"][0]
+    got = cnv_device.null_model(*(cu(x) for x in a))
+    assert np.array_equal(_bits(got), _bits(want))
+    calls = stage.rec["seed_eval"]
+    longest = max(calls, key=lambda c: int(c[2][0].sum()))
+    for a, _, want in calls[:4] + [longest]:
+        got = cnv_device.seed_eval(*(cu(x) for x in a))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
