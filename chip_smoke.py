@@ -7,17 +7,28 @@ non-zero without its result line:
 
 1. the toolchain and the card (torch, CUDA, nvcc, triton, nvidia-smi);
 2. build the CUDA kernels from grom_tpu_torch/csrc/ with nvcc for sm_90a;
-3. every kernel against its plain PyTorch version on the inputs that a
-   torch-engine run of the cnvrich fixture hands it: integers exactly, f64
-   bitwise against the plain version run on CPU copies;
+3. every kernel against its plain PyTorch version on the inputs that
+   runs of the cnvrich fixture hand it (the torch engine, then the mesh
+   engine on a 2x2 grid whose four cells are all on the card): integers
+   exactly, f64 bitwise against the plain version run on CPU copies;
 4. the committed fixtures through ``python -m grom_tpu_torch`` on the torch
    engine: rows against the reference-binary oracles, files byte for byte
    against the port's host engine (grom_tpu's native engines);
+4b. the same fixtures on the mesh engine, against the oracles and the host
+   engine's files; then ds200k in process on a 2x2 grid of cells all on
+   the card, at 60 kb ingest chunks, so the depth carry crosses cells,
+   launches and chunks on the card;
 5. real size: one 24 Mb chromosome at 30x (grom_tpu.testing.bulk_sim,
    seed 5), host engine then torch engine, VCF and .ctx.vcf byte-identical;
-   the launch counts of the torch run; then every kernel against its plain
-   version, bitwise and timed beside it on the card, on the largest inputs
-   that run handed it (a full 2^18-base tile for the tile kernel).
+   the launch counts of the torch run; then every kernel of that path
+   against its plain version, bitwise and timed beside it on the card, on
+   the largest inputs that run handed it (a full 2^18-base tile for the
+   tile kernel);
+6. real size on the mesh engine: the same chromosome in a one-process NCCL
+   group (its collectives are real NCCL calls on the card), on the 1x1
+   grid of one card, byte-identical to phase 5's host output; the launch
+   counts of that run; then the depth and SV kernels against their plain
+   versions, bitwise and timed.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table, and as the last line
@@ -51,7 +62,17 @@ KERNELS = {
                   "grom_tpu/ops/cnv_device.py:154"),
     "null_model": ("grom_tpu_torch/csrc/cnv.cu",
                    "grom_tpu/ops/cnv_device.py:371"),
+    "rd_scatter": ("grom_tpu_torch/csrc/rd_depth.cu",
+                   "grom_tpu/parallel/pipeline.py:54"),
+    "rd_scan": ("grom_tpu_torch/csrc/rd_depth.cu",
+                "grom_tpu/parallel/pipeline.py:54"),
+    "sv_score": ("grom_tpu_torch/csrc/sv_score.cu",
+                 "grom_tpu/ops/sv_device.py:31"),
 }
+# the kernels each engine's main path launches
+TORCH_PATH = ("tile_accumulate", "zscores", "seed_eval", "null_model",
+              "sv_score")
+MESH_ONLY = ("rd_scatter", "rd_scan")
 
 # (fixture, extra flags, oracle tag); cnvmany is generated, not committed
 FIXTURES = [
@@ -109,6 +130,22 @@ def run_cli(argv, engine_name: str) -> float:
     torch.cuda.synchronize()
     if rc != 0:
         raise RuntimeError("grom_tpu_torch %s exited %d" % (argv, rc))
+    return time.perf_counter() - t0
+
+
+def run_on_grid(argv, shape=(2, 2)) -> float:
+    """One in-process run of the port's driver on the mesh engine over a
+    grid of ``shape`` cells, all on cuda:0; returns its wall seconds."""
+    import torch
+
+    from grom_tpu.cli import parse_args
+    from grom_tpu_torch.driver import run
+    from grom_tpu_torch.parallel.mesh import make_mesh
+    cfg = parse_args(list(argv))
+    mesh = make_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1]))
+    t0 = time.perf_counter()
+    run(cfg, engine="mesh", device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
@@ -179,21 +216,26 @@ def count_rows(vcf: str):
 # ---------------------------------------------------------------------------
 
 def _targets():
-    from grom_tpu_torch.ops import accumulate, cnv_device
+    from grom_tpu_torch.ops import accumulate, cnv_device, rd_depth, sv_device
     return {"tile_accumulate": (accumulate, "tile_kernel",
                                 accumulate.tile_kernel_plain),
             "zscores": (cnv_device, "zscores", cnv_device.zscores_plain),
             "seed_eval": (cnv_device, "seed_eval",
                           cnv_device.seed_eval_plain),
             "null_model": (cnv_device, "null_model",
-                           cnv_device.null_model_plain)}
+                           cnv_device.null_model_plain),
+            "rd_scatter": (rd_depth, "rd_scatter", rd_depth.rd_scatter_plain),
+            "rd_scan": (rd_depth, "rd_scan", rd_depth.rd_scan_plain),
+            "sv_score": (sv_device, "sv_score",
+                         sv_device.score_sv_entries_plain)}
 
 
 class Recorder:
     """While a run of the port is inside it, keeps for every kernel
     wrapper the arguments of its heaviest call (the most aligned bases of
     a full-width tile, the longest z block, the most window steps, the
-    most null segments), so the kernel can then be held to its plain
+    most null segments, the most deltas of a full-width cell, the widest
+    cell, the most SV entries), so the kernel can then be held to its plain
     version at the shapes the main path gave it."""
 
     def __init__(self):
@@ -209,7 +251,13 @@ class Recorder:
             return (int(args[0].shape[0]),)
         if name == "seed_eval":
             return (int(out[0].sum()), int(args[1].shape[0]))
-        return (len(args[2].s),)
+        if name == "null_model":
+            return (len(args[2].s),)
+        if name == "rd_scatter":
+            return (int(args[4]), int(args[0].shape[0]))
+        if name == "rd_scan":
+            return (int(args[0].shape[1]), int(args[2]))
+        return (int(args[0].shape[0]),)
 
     def __enter__(self):
         for name, (mod, attr, _) in _targets().items():
@@ -306,13 +354,16 @@ def _ms(fn) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(rec: Recorder, label: str, timed: bool) -> dict:
-    """Each recorded kernel call against its plain version: bitwise
-    against the plain version on CPU copies; with ``timed``, also beside
-    the plain version run on the card."""
+def check_kernels(rec: Recorder, label: str, timed: bool,
+                  names=tuple(KERNELS)) -> dict:
+    """Each recorded call of the kernels ``names`` against its plain
+    version: bitwise against the plain version on CPU copies; with
+    ``timed``, also beside the plain version run on the card."""
     import torch
     results = {}
     for name, (mod, attr, plain) in _targets().items():
+        if name not in names:
+            continue
         if name not in rec.best:
             raise AssertionError("%s: the run never called %s"
                                  % (label, name))
@@ -375,70 +426,115 @@ def phase_toolchain() -> str:
 
 
 def phase_build() -> None:
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from grom_tpu_torch import _build
     say("== 2. build")
-    for name in _build.LIBRARIES:
+
+    def one(name):
         t0 = time.perf_counter()
-        path = _build.library_path(name)
-        fresh = not os.path.exists(path)
+        fresh = not os.path.exists(_build.library_path(name))
+        path = _build.build(name)
+        return path, fresh, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+        built = list(pool.map(one, _build.LIBRARIES))
+    for name, (path, fresh, dt) in zip(_build.LIBRARIES, built):
         _build.library(name)
         say("%s.cu -> %s (%s, %.1f s)" % (name, os.path.relpath(path, REPO),
-                                         "built" if fresh else "cached",
-                                         time.perf_counter() - t0))
+                                         "built" if fresh else "cached", dt))
 
 
 def phase_cnvrich_kernels() -> None:
     say("== 3. kernels against their plain versions (cnvrich inputs; "
         "tolerance: integers exact, f64 bitwise)")
     d = os.path.join(DATA, "cnvrich")
-    out = os.path.join(OUT, "k_cnvrich.vcf")
+    args = ["-i", os.path.join(d, "ds.bam"), "-r", os.path.join(d, "ds.fa"),
+            "-V", "0.0001"]
     with Recorder() as rec:
-        run_cli(["-i", os.path.join(d, "ds.bam"), "-r",
-                 os.path.join(d, "ds.fa"), "-o", out, "-V", "0.0001"],
-                "torch")
+        run_cli(args + ["-o", os.path.join(OUT, "k_cnvrich.vcf")], "torch")
+        run_on_grid(args + ["-o", os.path.join(OUT, "k_cnvrich_grid.vcf")])
     check_kernels(rec, "cnvrich", timed=False)
+
+
+def fixture_run(fx: str, flags, tag: str):
+    """(argv without -o, output stem) of one FIXTURES row; builds cnvmany
+    under build/ at first use."""
+    if fx == "cnvmany":
+        from grom_tpu.testing import cnvmany
+        prefix = os.path.join(OUT, "cnvmany", "ds")
+        if not os.path.exists(prefix + ".bam.bai"):
+            os.makedirs(os.path.dirname(prefix), exist_ok=True)
+            cnvmany.build(prefix)
+        fa, bam = prefix + ".fa", prefix + ".bam"
+    else:
+        d = os.path.join(DATA, fx)
+        fa, bam = os.path.join(d, "ds.fa"), os.path.join(d, "ds.bam")
+    stem = os.path.join(OUT, "%s%s" % (fx, tag or ".default"))
+    return ["-i", bam, "-r", fa] + list(flags), stem
+
+
+def check_fixture(vcf: str, fx: str, tag: str) -> str:
+    """Rows of ``vcf`` against the oracle (and its .ctx.vcf where the
+    fixture has one); returns a summary."""
+    n = rows_match_oracle(vcf, os.path.join(DATA, fx, "oracle%s.vcf" % tag))
+    if fx in CTX_ORACLES:
+        drop = ("##fileDate", "##reference")
+        if body(ctx_path(vcf), drop) != body(
+                os.path.join(DATA, fx, "oracle.ctx.vcf"), drop):
+            raise AssertionError("%s: .ctx.vcf differs from the oracle" % fx)
+    _, snv, cnv = count_rows(vcf)
+    return "%4d rows (%d SNV, %d CNV)" % (n, snv, cnv)
 
 
 def phase_fixtures() -> None:
     say("== 4. fixtures, torch engine vs oracle and host engine")
-    from grom_tpu.testing import cnvmany
     for fx, flags, tag in FIXTURES:
-        if fx == "cnvmany":
-            prefix = os.path.join(OUT, "cnvmany", "ds")
-            if not os.path.exists(prefix + ".bam.bai"):
-                os.makedirs(os.path.dirname(prefix), exist_ok=True)
-                cnvmany.build(prefix)
-            fa, bam = prefix + ".fa", prefix + ".bam"
-        else:
-            d = os.path.join(DATA, fx)
-            fa, bam = os.path.join(d, "ds.fa"), os.path.join(d, "ds.bam")
-        stem = os.path.join(OUT, "%s%s" % (fx, tag or ".default"))
-        args = ["-i", bam, "-r", fa] + flags
+        args, stem = fixture_run(fx, flags, tag)
         t_dev = run_module(args + ["-o", stem + ".torch.vcf"], "torch")
         t_host = run_cli(args + ["-o", stem + ".host.vcf"], "host")
         same_files(stem + ".torch.vcf", stem + ".host.vcf")
-        n = rows_match_oracle(stem + ".torch.vcf", os.path.join(
-            DATA, fx, "oracle%s.vcf" % tag))
-        if fx in CTX_ORACLES:
-            drop = ("##fileDate", "##reference")
-            if body(ctx_path(stem + ".torch.vcf"), drop) != body(
-                    os.path.join(DATA, fx, "oracle.ctx.vcf"), drop):
-                raise AssertionError("%s: .ctx.vcf differs from the oracle"
-                                     % fx)
-        _, snv, cnv = count_rows(stem + ".torch.vcf")
-        say("%-8s %-22s %4d rows (%d SNV, %d CNV) = oracle = host engine; "
-            "torch process %.1f s, host in-process %.1f s"
-            % (fx, " ".join(flags) or "-", n, snv, cnv, t_dev, t_host))
+        summary = check_fixture(stem + ".torch.vcf", fx, tag)
+        say("%-8s %-22s %s = oracle = host engine; torch process %.1f s, "
+            "host in-process %.1f s"
+            % (fx, " ".join(flags) or "-", summary, t_dev, t_host))
 
 
-def phase_real_size() -> dict:
-    import torch
-
-    from grom_tpu.testing.bulk_sim import bulk_dataset
-    from grom_tpu.utils import timing
+def phase_fixtures_mesh() -> None:
     from grom_tpu_torch import _build
-    say("== 5. real size: %d Mb at %gx" % (BULK["length"] // 10**6,
-                                           BULK["coverage"]))
+    say("== 4b. fixtures, mesh engine vs oracle and host engine")
+    for fx, flags, tag in FIXTURES:
+        args, stem = fixture_run(fx, flags, tag)
+        t_dev = run_module(args + ["-o", stem + ".mesh.vcf"], "mesh")
+        same_files(stem + ".mesh.vcf", stem + ".host.vcf")
+        summary = check_fixture(stem + ".mesh.vcf", fx, tag)
+        say("%-8s %-22s %s = oracle = host engine; mesh process %.1f s"
+            % (fx, " ".join(flags) or "-", summary, t_dev))
+    # ds200k on a 2x2 grid of cells on one card, in 60 kb ingest chunks
+    args, stem = fixture_run("ds200k", [], "")
+    os.environ["GROM_TPU_CHUNK_BASES"] = "60000"
+    try:
+        _build.reset_launches()
+        t_grid = run_on_grid(args + ["-o", stem + ".grid.vcf"])
+        launches = dict(_build.LAUNCHES)
+    finally:
+        del os.environ["GROM_TPU_CHUNK_BASES"]
+    same_files(stem + ".grid.vcf", stem + ".host.vcf")
+    summary = check_fixture(stem + ".grid.vcf", "ds200k", "")
+    for k in KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError("2x2 grid run: kernel %s was not launched"
+                                 % k)
+    say("ds200k   2x2 grid on cuda:0, 60 kb chunks: %s = oracle = host "
+        "engine; %.1f s; launches %s" % (summary, t_grid,
+                                         json.dumps(launches)))
+
+
+def bulk_args():
+    """argv (without -o) of the real-size dataset, generated under build/
+    at first use."""
+    from grom_tpu.testing.bulk_sim import bulk_dataset
     prefix = os.path.join(REPO, "build", "bulk_%d_seed%d" % (
         BULK["length"], BULK["seed"]), "m")
     if not os.path.exists(prefix + ".bam.bai"):
@@ -446,7 +542,17 @@ def phase_real_size() -> dict:
         t0 = time.perf_counter()
         bulk_dataset(prefix, **BULK)
         say("dataset generated in %.1f s" % (time.perf_counter() - t0))
-    args = ["-i", prefix + ".bam", "-r", prefix + ".fa"]
+    return ["-i", prefix + ".bam", "-r", prefix + ".fa"]
+
+
+def phase_real_size() -> dict:
+    import torch
+
+    from grom_tpu.utils import timing
+    from grom_tpu_torch import _build
+    say("== 5. real size: %d Mb at %gx" % (BULK["length"] // 10**6,
+                                           BULK["coverage"]))
+    args = bulk_args()
     host_vcf = os.path.join(OUT, "bulk.host.vcf")
     dev_vcf = os.path.join(OUT, "bulk.torch.vcf")
     t_host = run_cli(args + ["-o", host_vcf], "host")
@@ -469,7 +575,7 @@ def phase_real_size() -> dict:
         % (n, snv, cnv))
     say("wall: host engine %.2f s, torch engine %.2f s" % (t_host, t_dev))
     say("launches in the torch run:", json.dumps(launches))
-    for k in KERNELS:
+    for k in TORCH_PATH:
         if launches.get(k, 0) <= 0:
             raise AssertionError("kernel %s was not launched" % k)
     tiles = math.ceil(BULK["length"] / (1 << 18))
@@ -487,10 +593,61 @@ def phase_real_size() -> dict:
 
     say("-- kernels against their plain versions (inputs of this run; "
         "tolerance: integers exact, f64 bitwise)")
-    res = check_kernels(rec, "real-size", timed=True)
+    res = check_kernels(rec, "real-size", timed=True, names=TORCH_PATH)
     for k, row in res.items():
         row["launches"] = launches[k]
     torch.cuda.synchronize()
+    return res
+
+
+def phase_real_size_mesh() -> dict:
+    """The 24 Mb run on the mesh engine inside a one-process NCCL group."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from grom_tpu_torch import _build
+    from grom_tpu_torch.parallel.pipeline import get_mesh_accumulator
+    say("== 6. real size on the mesh engine (one-process NCCL group)")
+    args = bulk_args()
+    mesh_vcf = os.path.join(OUT, "bulk.mesh.vcf")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    store = dist.TCPStore("localhost", port, 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = get_mesh_accumulator("cuda").mesh
+        if (mesh.shape != (1, 1) or mesh.group is None
+                or dist.get_backend(mesh.group) != "nccl"):
+            raise AssertionError("mesh %s in group %s" % (mesh.shape,
+                                                          mesh.group))
+        with Recorder() as rec:
+            _build.reset_launches()
+            t_mesh = run_cli(args + ["-o", mesh_vcf], "mesh")
+            launches = dict(_build.LAUNCHES)
+        same_files(mesh_vcf, os.path.join(OUT, "bulk.host.vcf"))
+        say("VCF and .ctx.vcf byte-identical to the host engine's; mesh "
+            "engine %.2f s on a %dx%d grid" % ((t_mesh,) + mesh.shape))
+        say("launches in the mesh run:", json.dumps(launches))
+        for k in KERNELS:
+            if launches.get(k, 0) <= 0:
+                raise AssertionError("kernel %s was not launched" % k)
+        cells = math.ceil(BULK["length"] / (1 << 18))
+        for k in ("tile_accumulate",) + MESH_ONLY:
+            if launches[k] < cells:
+                raise AssertionError("%d %s launches < %d cells"
+                                     % (launches[k], k, cells))
+        say("-- kernels against their plain versions (inputs of this run; "
+            "tolerance: integers exact, f64 bitwise)")
+        res = check_kernels(rec, "mesh real-size", timed=True,
+                            names=MESH_ONLY + ("sv_score",))
+        for k, row in res.items():
+            row["launches"] = launches[k]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
     return res
 
 
@@ -515,7 +672,9 @@ def main() -> int:
     phase_build()
     phase_cnvrich_kernels()
     phase_fixtures()
+    phase_fixtures_mesh()
     res = phase_real_size()
+    res.update(phase_real_size_mesh())
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     say("== done in %.1f s" % (time.perf_counter() - t0))

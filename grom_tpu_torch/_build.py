@@ -12,8 +12,11 @@ kernel is rebuilt and a second process reuses the first one's build.
 the host engines round them; fast math is never used. A missing ``nvcc``
 or a failed build raises.
 
-Every C entry point returns ``cudaGetLastError()`` after its launches;
-:func:`check` turns a non-zero code into an exception.
+Every C entry point launches on the current CUDA device, into the stream it
+is given, and returns ``cudaGetLastError()`` after its launches; :func:`check`
+turns a non-zero code into an exception. Each kernel wrapper makes its
+tensors' card current (``torch.cuda.device``) around its launches, so a
+wrapper called with tensors on any card launches there.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card; :func:`reset_launches` sets every count to zero.
@@ -36,8 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # the kernel libraries (csrc/<name>.cu) and the kernels counted in LAUNCHES
-LIBRARIES = ("tile_accumulate", "cnv")
-KERNELS = ("tile_accumulate", "zscores", "seed_eval", "null_model")
+LIBRARIES = ("tile_accumulate", "cnv", "rd_depth", "sv_score")
+KERNELS = ("tile_accumulate", "zscores", "seed_eval", "null_model",
+           "rd_scatter", "rd_scan", "sv_score")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 

@@ -1,8 +1,8 @@
-"""The CNV stage on the torch engine (the counterpart of the device branch
-of grom_tpu/call/cnv.py).
+"""The CNV stage on the device engines (the counterpart of the device
+branch of grom_tpu/call/cnv.py).
 
-``call_cnv`` with ``engine="torch"`` runs the z-scores, the null window
-model and the del/dup window scans through the port's kernels
+``call_cnv`` with ``engine="torch"`` or ``"mesh"`` runs the z-scores, the
+null window model and the del/dup window scans through the port's kernels
 (ops/cnv_device.py); every other step calls grom_tpu's host helpers as they
 are. Any other engine runs grom_tpu's host CNV stage unchanged. Output is
 bit-identical to the host engine: the kernels are held to its bits.
@@ -135,9 +135,10 @@ def call_cnv(chrom: np.ndarray, rd_hi: np.ndarray, rd_lo: np.ndarray,
              engine: str = "host", release=None,
              device="cuda") -> List[str]:
     """Full CNV pipeline for one chromosome (grom_tpu's call_cnv). With
-    ``engine="torch"`` the z / null-model / window-scan kernels run on
-    ``device``; otherwise grom_tpu's host stage runs as it is."""
-    if engine != "torch":
+    ``engine="torch"`` or ``"mesh"`` the z / null-model / window-scan
+    kernels run on ``device``; otherwise grom_tpu's host stage runs as it
+    is."""
+    if engine not in ("torch", "mesh"):
         return cnv_ref.call_cnv(chrom, rd_hi, rd_lo, rd_mq_sum, cfg, drv,
                                 chr_name, is_chrx, gen1000_out=gen1000_out,
                                 engine="host", release=release)

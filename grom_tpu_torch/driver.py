@@ -1,19 +1,25 @@
 """Pipeline driver of the port: ingest → scan → detect → VCF per chromosome,
-with the per-base accumulate + SNV screen and the CNV stage on the torch
-engine's kernels.
+with the per-base accumulate + SNV screen, the SV entry scorer and the CNV
+stage on the device engines' kernels.
 
 The counterpart of grom_tpu/driver.py. The orchestration is grom_tpu's
 (the streamed path, the whole-batch path, ``_ChunkDetect``); only the
 engine hooks differ, so fixes made in the reference carry over by diff:
 
 * ``engine="torch"`` runs ops/accumulate.py's ``TorchAccumulator`` per
-  detect sub-chunk and call/cnv.py's device CNV stage, on ``device``;
+  detect sub-chunk on ``device``; the caf_rd_* depth lists stay host-side,
+  as grom_tpu's single-device engine keeps them;
+* ``engine="mesh"`` runs parallel/pipeline.py's ``MeshAccumulator`` over a
+  grid of genome cells (``mesh``, default: every visible CUDA device and
+  the default ``torch.distributed`` group), which also builds the depth
+  lists on the device with a cross-cell carry;
+* both device engines score SV entries with ops/sv_device.py's scorer and
+  run call/cnv.py's device CNV stage;
 * ``engine="host"`` runs grom_tpu's native C / numpy engines.
 
-There is no fallback from a kernel to its plain version or from the torch
-engine to the host engine: a torch engine asked for "cuda" without a card
-raises. The caf_rd_* depth lists stay host-side, as grom_tpu's
-single-device engine keeps them.
+There is no fallback from a kernel to its plain version or from a device
+engine to the host engine: a device engine asked for "cuda" without a card
+raises.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from grom_tpu.ingest.insert_size import InsertStats, load_or_estimate
 from grom_tpu.stats import binom
 from grom_tpu.vcfio.writer import VcfWriter
 
-ENGINES = ("host", "torch")
+ENGINES = ("host", "torch", "mesh")
 
 
 @dataclass
@@ -52,41 +58,60 @@ class RunResult:
 
 def resolve_engine() -> str:
     """Which engine to run: GROM_TPU_TORCH_ENGINE = "host" (grom_tpu's
-    native C / numpy engines), "torch" (the port's kernels) or "auto"
-    (default: torch exactly when a CUDA device is available, else host).
-    An auto choice is reported on stderr."""
+    native C / numpy engines), "torch" (the port's kernels on one device),
+    "mesh" (the port's kernels over a grid of cells) or "auto" (default:
+    mesh with more than one CUDA device, torch with one, else host). An
+    auto choice is reported on stderr."""
     e = os.environ.get("GROM_TPU_TORCH_ENGINE", "auto")
     if e != "auto":
         if e not in ENGINES:
-            raise ValueError("GROM_TPU_TORCH_ENGINE must be host, torch or "
-                             "auto, not %r" % e)
+            raise ValueError("GROM_TPU_TORCH_ENGINE must be host, torch, "
+                             "mesh or auto, not %r" % e)
         return e
     import torch
-    e = "torch" if torch.cuda.is_available() else "host"
+    if not torch.cuda.is_available():
+        e = "host"
+    else:
+        e = "mesh" if torch.cuda.device_count() > 1 else "torch"
     print("grom_tpu_torch: engine auto -> %s" % e, file=sys.stderr,
           flush=True)
     return e
 
 
 def check_device(engine: str, device) -> None:
-    """Raise when the torch engine is asked for a CUDA device that is not
+    """Raise when a device engine is asked for a CUDA device that is not
     there (no fallback to the CPU or to the host engine)."""
-    if engine != "torch":
+    if engine not in ("torch", "mesh"):
         return
     import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("engine 'torch' on %s needs a CUDA device, and "
-                           "none is available" % device)
+        raise RuntimeError("engine %r on %s needs a CUDA device, and none "
+                           "is available" % (engine, device))
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError("engine 'torch' runs on cuda (or cpu for tests), "
-                         "not %s" % device)
+        raise ValueError("engine %r runs on cuda (or cpu for tests), not %s"
+                         % (engine, device))
+
+
+def _accumulator(engine: str, device, mesh=None):
+    """(accumulator, the device of the SV scorer) of a device engine."""
+    import torch
+    if engine == "mesh":
+        from grom_tpu_torch.parallel.pipeline import (MeshAccumulator,
+                                                      get_mesh_accumulator)
+        acc = (MeshAccumulator(mesh=mesh) if mesh is not None
+               else get_mesh_accumulator(device))
+        return acc, acc.mesh.devices[0]
+    from grom_tpu_torch.ops.accumulate import TorchAccumulator
+    return TorchAccumulator(device), torch.device(device)
 
 
 def run(cfg: GromConfig, file_date: Optional[str] = None,
-        engine: Optional[str] = None, device="cuda") -> RunResult:
+        engine: Optional[str] = None, device="cuda",
+        mesh=None) -> RunResult:
     """Single-host run (the reference's serial mode). With -c
     "chr,sub,start,end" set, runs the sub-region child mode instead.
+    ``mesh`` (parallel/mesh.py) is the grid of the mesh engine.
 
     With a BAI index present, chromosomes are decoded one at a time
     (regional fetches), so peak memory is one chromosome's reads. Without
@@ -95,7 +120,7 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
         engine = resolve_engine()
     check_device(engine, device)
     if cfg.one_chromosome:
-        return run_child_region(cfg, engine, device)
+        return run_child_region(cfg, engine, device, mesh)
     from grom_tpu.utils.timing import phase, report
     # progress prints mirroring the reference's stdout (src/GROM.c:22106-22111,
     # :22274-22275, :1421-1426)
@@ -168,7 +193,7 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
             res = call_chromosome_streamed(chrom, refid, fa_name.lower(),
                                            cfg, drv, mq_table, hez_table,
                                            fetch, engine=engine,
-                                           device=device)
+                                           device=device, mesh=mesh)
             if res is None:   # freak CIGARs overflowed the deposit ring
                 _, creads = bam_mod.read_bam_region(
                     cfg.bam, refid, 0, int(header.ref_lengths[refid]))
@@ -176,7 +201,8 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
         if res is None:
             res = call_chromosome(chrom, creads, sel, refid,
                                   fa_name.lower(), cfg, drv, mq_table,
-                                  hez_table, engine=engine, device=device)
+                                  hez_table, engine=engine, device=device,
+                                  mesh=mesh)
         rows, ctx_recs = res
         del creads
         writer.write_rows(rows)
@@ -260,7 +286,7 @@ def _chromosome_stream(cfg: GromConfig, header, info, jobs, reads,
 
 
 def run_child_region(cfg: GromConfig, engine: str = "host",
-                     device="cuda") -> RunResult:
+                     device="cuda", mesh=None) -> RunResult:
     """-c "chr,sub,start,end" child: process one sub-region of one
     chromosome through the whole-batch path, writing headerless partial
     files <out>.<bamchr>-<sub> and <out>.<bamchr>-<sub>.ctx
@@ -291,7 +317,7 @@ def run_child_region(cfg: GromConfig, engine: str = "host",
         rows, ctx_recs = call_chromosome(chrom, reads, sel, refid, out_name,
                                          cfg, drv, mq_table, hez_table,
                                          region_start=rstart, engine=engine,
-                                         device=device)
+                                         device=device, mesh=mesh)
     with open(out_path, "w") as f:
         for r in rows:
             f.write(r if r.endswith("\n") else r + "\n")
@@ -306,10 +332,11 @@ class _ChunkDetect:
     evidence/tally windows go in (ascending, possibly partial ranges), the
     detector state machines advance, and only sparse candidates survive
     (the reference's insert-sized sliding window, src/GROM.c:5846-6402, at
-    chunk granularity). The SV screen runs on the host (``scorer = None``)
-    on every engine."""
+    chunk granularity). The SV entries are scored by the device engines'
+    scorer (ops/sv_device.py), or on the host."""
 
-    def __init__(self, chrom, cfg, drv, mq_table, hez_table, scan_start):
+    def __init__(self, chrom, cfg, drv, mq_table, hez_table, scan_start,
+                 engine="host", device="cuda"):
         from collections import deque
 
         from grom_tpu.call import indel as indel_mod
@@ -323,7 +350,9 @@ class _ChunkDetect:
         L = len(chrom)
         self.sv = sv_mod.SvDetector(L, cfg, drv, mq_table, hez_table)
         self.indel = indel_mod.IndelDetector(L, cfg, drv, mq_table, hez_table)
-        self.sv.scorer = None
+        from grom_tpu_torch.ops.sv_device import maybe_scorer
+        self.sv.scorer = maybe_scorer(engine, mq_table, hez_table, cfg, drv,
+                                      device)
         self.snv_parts: List = []
         self.windows = deque()    # dicts: lo, hi, dense, ev, snv (arr|dev), bt
         self.det_lo = 0
@@ -376,7 +405,7 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                              mq_table: np.ndarray, hez_table: np.ndarray,
                              fetch, engine: Optional[str] = None,
                              chunk_bases: Optional[int] = None,
-                             region_start: int = 0, device="cuda"
+                             region_start: int = 0, device="cuda", mesh=None
                              ) -> Optional[Tuple[List[str], List[str]]]:
     """Bounded-memory per-chromosome calling: reads are fetched in
     genome-position INGEST chunks (``fetch(t0, t1) -> RawReads`` overlapping
@@ -385,17 +414,19 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     O(ingest chunk) for reads plus O(detect chunk) for the dense evidence
     window, independent of chromosome length.
 
-    On the torch engine every drained detect sub-chunk goes through
-    ``TorchAccumulator.run`` (the tile kernel); on the host engine through
-    the native tally engine. Returns None when the deposit ring rejects the
-    data (freak CIGARs) — the caller redoes the chromosome via the
-    whole-batch path on the same engine."""
+    On the device engines every drained detect sub-chunk goes through
+    ``TorchAccumulator.run`` (torch: the tile kernel) or
+    ``MeshAccumulator.run`` (mesh: the tile kernel per cell, and the depth
+    lists); on the host engine through the native tally engine. Returns
+    None when the deposit ring rejects the data (freak CIGARs) — the caller
+    redoes the chromosome via the whole-batch path on the same engine."""
     from grom_tpu.call.deposits import DepositsSession
     from grom_tpu.utils.timing import phase
 
     if engine is None:
         engine = resolve_engine()
-    device_engine = engine == "torch"
+    device_engine = engine in ("torch", "mesh")
+    mesh_mode = engine == "mesh"
     L = len(chrom)
     if chunk_bases:
         C, force_async = chunk_bases, False
@@ -412,10 +443,9 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     D = max(min(D, C), dep.back + dep.DRAIN_HALO + 1)
     C = max(C, D)
 
-    acc = None
+    acc, sv_dev = None, device
     if device_engine:
-        from grom_tpu_torch.ops.accumulate import TorchAccumulator
-        acc = TorchAccumulator(device)
+        acc, sv_dev = _accumulator(engine, device, mesh)
 
     # whole-chromosome per-base state is ONLY the depth lists (the CNV
     # engine's inputs — the reference holds the same, src/GROM.c:6605-6664)
@@ -423,7 +453,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     rd_hi = np.zeros(L, np.int32)
     rd_lo = np.zeros(L, np.int32)
 
-    det = _ChunkDetect(chrom, cfg, drv, mq_table, hez_table, scan_start)
+    det = _ChunkDetect(chrom, cfg, drv, mq_table, hez_table, scan_start,
+                       engine=engine, device=sv_dev)
     scan_native = None     # host tally engine pinned on first chunk
     skipped = 0
     last_pos = -1
@@ -457,10 +488,14 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                 dev = {"n": 0}
             else:
                 gate = dense.rd[:n].astype(np.int64) + dense.indel_sc_rd[:n]
+                # the mesh engine also writes the depth lists of [d0, d1)
+                rd_kw = (dict(rd_out=(rd_mq, rd_hi, rd_lo)) if mesh_mode
+                         else {})
                 with phase("scan.device"):
-                    _, dev = acc.run(chrom, jbatch, jelig, cfg, gate,
-                                     lo=d0, hi=d1, base_tot_out=bt,
-                                     gate_base=d0, base_tot_base=d0)
+                    dev = acc.run(chrom, jbatch, jelig, cfg, gate,
+                                  lo=d0, hi=d1, base_tot_out=bt,
+                                  gate_base=d0, base_tot_base=d0,
+                                  **rd_kw)[1]
             det.add_window(d0, d1, dense, ev, dev, bt)
         else:
             arr_d = snv_src
@@ -521,7 +556,7 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                                            side="left"))
             elig = batch_all.keep & (batch_all.pos >= scan_start)
             span_end = batch_all.span_ref + batch_all.span_len
-            if device_engine:
+            if device_engine and not mesh_mode:
                 # the depth lists stay host-side on the torch engine
                 with phase("scan.accumulate"):
                     scan_mod._accumulate_rd_lists(
@@ -606,7 +641,7 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         cands = snv_mod.concat_candidates(det.snv_parts)
     return _finish_chromosome(chrom, arr_fin, cands, det.sv, det.indel,
                               out_name, cfg, drv, scan_start, scan_end,
-                              skipped, engine=engine, device=device)
+                              skipped, engine=engine, device=sv_dev)
 
 
 def _finish_chromosome(chrom, arr, cands, sv_det, ind_det, out_name,
@@ -672,7 +707,7 @@ def call_chromosome(chrom: np.ndarray, reads: bam_mod.RawReads,
                     cfg: GromConfig, drv: DerivedConfig,
                     mq_table: np.ndarray, hez_table: np.ndarray,
                     region_start: int = 0, engine: Optional[str] = None,
-                    device="cuda") -> Tuple[List[str], List[str]]:
+                    device="cuda", mesh=None) -> Tuple[List[str], List[str]]:
     """Whole-batch per-chromosome calling. Returns (vcf_rows, ctx_records)
     in the reference's emission order: SNV, DUP, INV, INS, INDEL_INS,
     INDEL_DEL, DEL (CNV rows are appended by the CNV engine)."""
@@ -693,13 +728,14 @@ def call_chromosome(chrom: np.ndarray, reads: bam_mod.RawReads,
     if engine is None:
         engine = resolve_engine()
     base_tot = None
-    if engine == "torch":
-        from grom_tpu_torch.ops.accumulate import TorchAccumulator
+    sv_dev = device
+    if engine in ("torch", "mesh"):
+        acc, sv_dev = _accumulator(engine, device, mesh)
         eligible = batch.keep & (batch.pos >= scan_start)
         gate = dense.rd + dense.indel_sc_rd
         with phase("scan.device"):
-            base_tot, dev_cand = TorchAccumulator(device).run(
-                chrom, batch, eligible, cfg, gate)
+            res = acc.run(chrom, batch, eligible, cfg, gate)
+        base_tot, dev_cand = res[0], res[1]
         L = len(chrom)
         z0 = np.zeros(0, np.int64)
         z4 = np.zeros((4, 0), np.int64)
@@ -711,7 +747,11 @@ def call_chromosome(chrom: np.ndarray, reads: bam_mod.RawReads,
             snv=z4, snv_lowmq=z4, bq=z0, bq_all=z0, mq=z0, mq_all=z0,
             bq_read_count=z0, mq_read_count=z0, read_count_all=z0,
             pos_in_read=z4, fstrand=z4)
-        scan_mod._accumulate_rd_lists(arr, batch, eligible, cfg)
+        if engine == "mesh":
+            # the depth lists came from the device with the cross-cell carry
+            arr.rd_mq, arr.rd_hi, arr.rd_lo = res[2]
+        else:
+            scan_mod._accumulate_rd_lists(arr, batch, eligible, cfg)
         with phase("call.snv"):
             cands = snv_mod.candidates_from_device(
                 dev_cand, chrom, cfg, mq_table, hez_table,
@@ -733,7 +773,9 @@ def call_chromosome(chrom: np.ndarray, reads: bam_mod.RawReads,
     L = len(chrom)
     ev_chunk = EvidenceChunk.from_state(ev)
     sv_det = sv_mod.SvDetector(L, cfg, drv, mq_table, hez_table)
-    sv_det.scorer = None
+    from grom_tpu_torch.ops.sv_device import maybe_scorer
+    sv_det.scorer = maybe_scorer(engine, mq_table, hez_table, cfg, drv,
+                                 sv_dev)
     with phase("call.sv_detect"):
         sv_det.run_chunk(ev_chunk, dense, 0, L, scan_start, scan_end)
     ind_det = indel_mod.IndelDetector(L, cfg, drv, mq_table, hez_table)
@@ -745,4 +787,4 @@ def call_chromosome(chrom: np.ndarray, reads: bam_mod.RawReads,
                           scan_start, scan_end)
     return _finish_chromosome(chrom, arr, cands, sv_det, ind_det, out_name,
                               cfg, drv, scan_start, scan_end, skipped,
-                              engine=engine, device=device)
+                              engine=engine, device=sv_dev)

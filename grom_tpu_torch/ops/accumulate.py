@@ -362,8 +362,9 @@ def tile_kernel(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
     ``tile_kernel_plain`` for CPU tensors."""
     kind = t.cum.device.type
     if kind == "cuda":
-        return _tile_kernel_cuda(t, thr, min_mapq, min_bq, min_snv,
-                                 name_len_cap)
+        with torch.cuda.device(t.cum.device):
+            return _tile_kernel_cuda(t, thr, min_mapq, min_bq, min_snv,
+                                     name_len_cap)
     if kind == "cpu":
         return tile_kernel_plain(t, thr, min_mapq, min_bq, min_snv,
                                  name_len_cap)

@@ -207,8 +207,9 @@ def zscores(depth, mq, gc, low_acgt, w, tables: CnvTables, nb: int,
     """Per-base z over one block: the CUDA kernel for CUDA tensors,
     ``zscores_plain`` for CPU tensors."""
     if _dispatch(depth, "zscores") == "cuda":
-        return _zscores_cuda(depth, mq, gc, low_acgt, w, tables, nb,
-                             min_mapq, dup_thr_factor, ranks)
+        with torch.cuda.device(depth.device):
+            return _zscores_cuda(depth, mq, gc, low_acgt, w, tables, nb,
+                                 min_mapq, dup_thr_factor, ranks)
     return zscores_plain(depth, mq, gc, low_acgt, w, tables, nb, min_mapq,
                          dup_thr_factor, ranks)
 
@@ -440,7 +441,9 @@ def seed_eval(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
     """Every seed's window outcome (see ``seed_eval_plain``): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if _dispatch(seeds, "seed_eval") == "cuda":
-        return _seed_eval_cuda(si, seeds, seed_cls, minw, maxw, max_low, be)
+        with torch.cuda.device(seeds.device):
+            return _seed_eval_cuda(si, seeds, seed_cls, minw, maxw, max_low,
+                                   be)
     return seed_eval_plain(si, seeds, seed_cls, minw, maxw, max_low, be)
 
 
@@ -711,5 +714,6 @@ def null_model(z, gate, seg: NullSegments, minw: int, maxw: int,
     tensors, ``null_model_plain`` for CPU tensors. Bitwise equal to the
     host's ``_null_window_model``."""
     if _dispatch(z, "null_model") == "cuda":
-        return _null_model_cuda(z, gate, seg, minw, maxw, batch)
+        with torch.cuda.device(z.device):
+            return _null_model_cuda(z, gate, seg, minw, maxw, batch)
     return null_model_plain(z, gate, seg, minw, maxw, batch)

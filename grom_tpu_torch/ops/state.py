@@ -8,6 +8,11 @@ port's kernels the same values through these converters:
   ``tile_kernel_core``, with the pads stripped to runtime sizes;
 * ``cnv_tables``: the CNV bin matrix, ``bin_len``, ``ave``, ``std`` and the
   pval2sd table, checked for the order the kernels' binary searches need;
+* ``cell_deltas``: one mesh cell's slice of the rd endpoint deltas
+  (parallel/pipeline.py ``endpoint_deltas``), cell-relative, for
+  ``rd_scatter``;
+* ``sv_tables`` / ``sv_entries``: the SV scorer's binomial tables and etype
+  index tables, and one window's entry arrays, for ``sv_score``;
 * ``to_device``: any numpy array as a contiguous tensor on a device.
 """
 
@@ -20,6 +25,7 @@ import numpy as np
 from grom_tpu_torch.ops.accumulate import (TileInputs, screen_threshold,
                                             to_device)
 from grom_tpu_torch.ops.cnv_device import CnvTables
+from grom_tpu_torch.ops.sv_device import ENTRY_KEYS, SvTables
 
 
 def tile_from_args(args: tuple, statics: dict, device
@@ -79,3 +85,34 @@ def cnv_tables(bin_mat: np.ndarray, bin_len: np.ndarray, ave: np.ndarray,
                      pv_p=to_device(pv_p, f64, device),
                      pv_sd=to_device(pv_sd, f64, device))
 
+
+def cell_deltas(d_pos: np.ndarray, d_mq: np.ndarray, d_hi: np.ndarray,
+                d_lo: np.ndarray, t0: int, t1: int, device):
+    """The deltas a cell [t0, t1) owns (``d_pos`` sorted) as ``rd_scatter``
+    inputs: (pos int32 cell-relative, w_mq int32, w_hi int8, w_lo int8)."""
+    a = int(np.searchsorted(d_pos, t0, side="left"))
+    b = int(np.searchsorted(d_pos, t1, side="left"))
+    return (to_device(d_pos[a:b] - t0, np.int32, device),
+            to_device(d_mq[a:b], np.int32, device),
+            to_device(d_hi[a:b], np.int8, device),
+            to_device(d_lo[a:b], np.int8, device))
+
+
+def sv_tables(mq_tab: np.ndarray, hez_tab: np.ndarray, device) -> SvTables:
+    """The scorer's tables on ``device``: the f64 binomial tables and
+    sv_screen's etype -> kind / reverse-side index tables, as they are."""
+    from grom_tpu.call.sv_screen import _ETYPE_KIND, _ETYPE_REV
+    if mq_tab.shape != hez_tab.shape or mq_tab.ndim != 2:
+        raise ValueError("the mq and hez tables must be 2-D of one shape")
+    return SvTables(mq=to_device(mq_tab, np.float64, device),
+                    hez=to_device(hez_tab, np.float64, device),
+                    kind=to_device(_ETYPE_KIND, np.int32, device),
+                    rev=to_device(_ETYPE_REV, np.int32, device))
+
+
+def sv_entries(arrays, device) -> Tuple:
+    """One window's entry arrays (sv_screen's ``scorer`` arguments: pos,
+    etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here) as ``sv_score``
+    inputs: int64 tensors, ``etype`` int32."""
+    return tuple(to_device(a, np.int32 if k == "etype" else np.int64, device)
+                 for k, a in zip(ENTRY_KEYS, arrays))

@@ -1,0 +1,236 @@
+"""The port's mesh engine (grom_tpu_torch/parallel/) on the CPU.
+
+* ``MeshAccumulator`` on 2x2 and 1x1 grids of CPU cells against grom_tpu's
+  ``MeshAccumulator`` on CPU jax meshes of the same shapes, on the same
+  inputs: base_tot, the candidates, rd_mq/rd_hi/rd_lo and the histogram
+  exactly equal.
+* ``run(engine="mesh", device="cpu")`` (the plain versions of every kernel)
+  against grom_tpu's host engine, byte for byte: the streamed path whole and
+  chunked, the whole-batch path and ``-c``, on the fixtures with SVs and
+  CNVs; and once against grom_tpu's own mesh engine."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from grom_tpu.config import GromConfig
+from grom_tpu_torch.parallel.mesh import make_mesh
+from grom_tpu_torch.parallel.pipeline import MeshAccumulator
+from test_torch_rd_depth import synthetic_batch
+from test_torch_slice import DATA, DATE, _cfg, _read
+
+# one intra-op thread: the suite runs in several worker processes at once,
+# and torch's default of one thread per core would oversubscribe the host
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def ds200k():
+    from grom_tpu.testing.fixtures import chrom_inputs
+    return chrom_inputs(os.path.join(DATA, "ds200k"))
+
+
+def _same_result(got, want):
+    base_g, cand_g, rd_g, hist_g = got
+    base_w, cand_w, rd_w, hist_w = want
+    assert np.array_equal(base_g, base_w)
+    for g, w in zip(rd_g, rd_w):
+        assert g.dtype == np.int32 and np.array_equal(g, w)
+    assert hist_g.dtype == np.int64 and np.array_equal(hist_g, hist_w)
+    assert cand_g["n"] == cand_w["n"]
+    for k, v in cand_w.items():
+        if k != "n":
+            assert np.array_equal(cand_g[k], v), k
+
+
+def _jax_result(inputs, shape, seg_l):
+    import jax
+
+    from grom_tpu.parallel.mesh import make_mesh as jax_mesh
+    from grom_tpu.parallel.pipeline import MeshAccumulator as JaxMesh
+    acc = JaxMesh(mesh=jax_mesh(*shape, devices=jax.devices("cpu")),
+                  seg_l=seg_l)
+    res = acc.run(*inputs)
+    assert res is not None
+    return res
+
+
+@pytest.mark.parametrize("shape,seg_l", [((2, 2), 1 << 14), ((1, 1), None)])
+def test_mesh_accumulator_matches_jax(ds200k, shape, seg_l):
+    ci = ds200k
+    inputs = (ci.chrom, ci.batch, ci.eligible, ci.cfg, ci.gate)
+    acc = MeshAccumulator(mesh=make_mesh(*shape, devices=["cpu"] * 4),
+                          seg_l=seg_l)
+    got = acc.run(*inputs)
+    _same_result(got, _jax_result(inputs, shape, seg_l))
+    assert got[1]["n"] > 0
+
+
+def test_mesh_accumulator_chunked_matches_jax(ds200k):
+    """A position range [lo, hi) with chunk-local gate and base_tot arrays,
+    as the streamed path calls it."""
+    import jax
+
+    from grom_tpu.parallel.mesh import make_mesh as jax_mesh
+    from grom_tpu.parallel.pipeline import MeshAccumulator as JaxMesh
+    ci = ds200k
+    lo, hi = 61_000, 133_000
+    outs = []
+    for acc in (MeshAccumulator(mesh=make_mesh(2, 2, devices=["cpu"] * 4),
+                                seg_l=1 << 14),
+                JaxMesh(mesh=jax_mesh(2, 2, devices=jax.devices("cpu")),
+                        seg_l=1 << 14)):
+        bt = np.zeros(hi - lo, np.int64)
+        rd = tuple(np.zeros(len(ci.chrom), np.int32) for _ in range(3))
+        res = acc.run(ci.chrom, ci.batch, ci.eligible, ci.cfg,
+                      ci.gate[lo:hi], lo=lo, hi=hi, base_tot_out=bt,
+                      rd_out=rd, gate_base=lo, base_tot_base=lo)
+        assert res[0] is bt and all(a is b for a, b in zip(res[2], rd))
+        outs.append(res)
+    _same_result(*outs)
+    assert not outs[0][2][1][:lo].any() and not outs[0][2][1][hi:].any()
+
+
+def test_mesh_accumulator_cell_without_spans():
+    """A launch whose cells own end deltas but no spans, and a short last
+    launch (5 cells on a 2x2 grid), against grom_tpu's mesh."""
+    chrom, batch, eligible, gate = synthetic_batch()
+    cfg = GromConfig(bam="", ref_fasta="", out_vcf="")
+    inputs = (chrom, batch, eligible, cfg, gate)
+    acc = MeshAccumulator(mesh=make_mesh(2, 2, devices=["cpu"] * 4),
+                          seg_l=1024)
+    _same_result(acc.run(*inputs), _jax_result(inputs, (2, 2), 1024))
+
+
+def test_mesh_needs_names():
+    chrom, batch, eligible, gate = synthetic_batch()
+    batch.reads.name_id = None
+    cfg = GromConfig(bam="", ref_fasta="", out_vcf="")
+    acc = MeshAccumulator(mesh=make_mesh(1, 1, devices=["cpu"]))
+    with pytest.raises(ValueError, match="read-name ids"):
+        acc.run(chrom, batch, eligible, cfg, gate)
+
+
+def test_mesh_grid_layout():
+    m = make_mesh(2, 2, devices=["cpu"] * 5)
+    assert m.shape == (2, 2) and m.n_local == 4 and m.first_cell == 0
+    assert len(m.devices) == 4 and m.group is None
+    with pytest.raises(ValueError, match="not enough devices"):
+        make_mesh(2, 2, devices=["cpu"] * 3)
+    # the default grid: n_sp = 2 for an even cell count above 1
+    assert MeshAccumulator(devices=["cpu"] * 4).mesh.shape == (2, 2)
+    assert MeshAccumulator(devices=["cpu"] * 3).mesh.shape == (3, 1)
+    assert MeshAccumulator(devices=["cpu"]).mesh.shape == (1, 1)
+
+
+def test_visible_cuda_devices_are_every_card(monkeypatch):
+    """The default grid spans every card the process sees; a launcher's
+    LOCAL_RANK / LOCAL_WORLD_SIZE do not split them."""
+    from grom_tpu_torch.parallel.mesh import visible_cuda_devices
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    assert visible_cuda_devices() == [torch.device("cuda", i)
+                                      for i in range(3)]
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_every_card(tmp_path, monkeypatch):
+    """The mesh engine's default grid over every visible card (cells on
+    cards other than the current one), at 60 kb ingest chunks, byte for
+    byte against the host engine."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from grom_tpu_torch.driver import run
+    from grom_tpu_torch.parallel.pipeline import get_mesh_accumulator
+    monkeypatch.setenv("GROM_TPU_CHUNK_BASES", "60000")
+    acc = get_mesh_accumulator("cuda")
+    assert len({d.index for d in acc.mesh.devices}) == torch.cuda.device_count()
+    host = str(tmp_path / "host.vcf")
+    port = str(tmp_path / "mesh.vcf")
+    run(_cfg("ds200k", host), file_date=DATE, engine="host")
+    run(_cfg("ds200k", port), file_date=DATE, engine="mesh", device="cuda")
+    assert _read(port) == _read(host)
+    assert _read(str(tmp_path / "mesh.ctx.vcf")) == _read(
+        str(tmp_path / "host.ctx.vcf"))
+
+
+def _host_and_mesh(tmp_path, fixture, kw, mesh=None):
+    from grom_tpu.driver import run as run_host
+    from grom_tpu_torch.driver import run
+    host = str(tmp_path / "host.vcf")
+    port = str(tmp_path / "mesh.vcf")
+    run_host(_cfg(fixture, host, **kw), file_date=DATE, engine="host")
+    run(_cfg(fixture, port, **kw), file_date=DATE, engine="mesh",
+        device="cpu", mesh=mesh)
+    assert _read(port) == _read(host)
+    assert _read(str(tmp_path / "mesh.ctx.vcf")) == _read(
+        str(tmp_path / "host.ctx.vcf"))
+    return port
+
+
+@pytest.mark.parametrize("fixture,kw,chunk", [
+    ("ds200k", {}, None),
+    ("ds200k", {}, 60_000),
+    ("dup60k", {"rmdup": True}, None),
+    ("sv400k", {}, None),
+    ("cnvrich", {"rd_pval_threshold": 1e-4}, None),
+])
+def test_mesh_engine_matches_host(tmp_path, monkeypatch, fixture, kw, chunk):
+    """The streamed path on a 2x2 grid of CPU cells; at 60 kb ingest
+    chunks the cells and the carry cross many chunk edges."""
+    from test_full_parity import _rows
+    if chunk:
+        monkeypatch.setenv("GROM_TPU_CHUNK_BASES", str(chunk))
+    out = _host_and_mesh(tmp_path, fixture, kw,
+                         make_mesh(2, 2, devices=["cpu"] * 4))
+    rows = _rows(out)
+    assert len(rows) == len(_rows(os.path.join(DATA, fixture, "oracle.vcf")))
+    if fixture == "cnvrich":
+        assert sum(1 for r in rows if "<DEL>" in r or "<DUP>" in r) >= 5
+
+
+def test_mesh_engine_default_grid(tmp_path):
+    """No ``mesh``: the engine builds its grid itself (one CPU cell)."""
+    _host_and_mesh(tmp_path, "ds200k", {})
+
+
+def test_mesh_engine_whole_batch_and_child_region(tmp_path, monkeypatch):
+    """The whole-batch path (GROM_TPU_STREAM_BASES above the chromosome
+    length) and ``-c`` on the mesh engine, against the oracles."""
+    from grom_tpu_torch.driver import run
+    from test_full_parity import _rows
+    mesh = make_mesh(2, 2, devices=["cpu"] * 4)
+    monkeypatch.setenv("GROM_TPU_STREAM_BASES", str(1 << 40))
+    out = str(tmp_path / "o.vcf")
+    run(_cfg("ds200k", out), file_date=DATE, engine="mesh", device="cpu",
+        mesh=mesh)
+    assert _rows(out) == _rows(os.path.join(DATA, "ds200k", "oracle.vcf"))
+    monkeypatch.delenv("GROM_TPU_STREAM_BASES")
+    oracle = os.path.join(DATA, "ds200k", "oracle.region-0-0-110000")
+    res = run(_cfg("ds200k", out, one_chromosome="0,0,0,110000"),
+              engine="mesh", device="cpu", mesh=mesh)
+    assert _read(res.vcf_path) == _read(oracle)
+    assert _read(res.ctx_path) == _read(oracle + ".ctx")
+
+
+def test_mesh_engine_matches_grom_tpu_mesh(tmp_path, monkeypatch):
+    """grom_tpu's own mesh engine (2x2 CPU jax mesh, strict: no fallback to
+    its host engine) and the port's, byte for byte on ds200k."""
+    import jax
+
+    from grom_tpu.driver import run as run_jax
+    from grom_tpu.parallel.mesh import make_mesh as jax_mesh
+    from grom_tpu_torch.driver import run
+    monkeypatch.setenv("GROM_TPU_STRICT", "1")
+    ref = str(tmp_path / "jax.vcf")
+    port = str(tmp_path / "port.vcf")
+    run_jax(_cfg("ds200k", ref), file_date=DATE, engine="mesh",
+            mesh=jax_mesh(2, 2, devices=jax.devices("cpu")))
+    run(_cfg("ds200k", port), file_date=DATE, engine="mesh", device="cpu",
+        mesh=make_mesh(2, 2, devices=["cpu"] * 4))
+    assert _read(port) == _read(ref)
+    assert _read(str(tmp_path / "port.ctx.vcf")) == _read(
+        str(tmp_path / "jax.ctx.vcf"))

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from grom_tpu.config import GromConfig
-from tests.test_full_parity import _rows, _rows_equal
+from test_full_parity import _rows, _rows_equal
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -96,13 +96,24 @@ def test_torch_engine_output_modes(tmp_path, kw, extra):
             os.path.join(DATA, "ds200k", extra))
 
 
-def test_torch_engine_on_cuda_without_gpu_raises(tmp_path, monkeypatch):
+@pytest.mark.parametrize("engine", ["torch", "mesh"])
+def test_torch_engine_on_cuda_without_gpu_raises(tmp_path, monkeypatch,
+                                                 engine):
     from grom_tpu_torch.driver import run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        run(_cfg("ds200k", str(tmp_path / "o.vcf")), engine="torch",
+        run(_cfg("ds200k", str(tmp_path / "o.vcf")), engine=engine,
             device="cuda")
     assert not os.path.exists(tmp_path / "o.vcf")
+
+
+def test_mesh_accumulator_without_gpu_raises(monkeypatch):
+    """The mesh engine's own grid over the visible CUDA devices: none
+    visible raises (no CPU fallback)."""
+    from grom_tpu_torch.parallel.pipeline import MeshAccumulator
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MeshAccumulator()
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -123,12 +134,17 @@ def test_resolve_engine(monkeypatch, capsys):
     assert resolve_engine() == "host"
     monkeypatch.setenv("GROM_TPU_TORCH_ENGINE", "torch")
     assert resolve_engine() == "torch"
+    monkeypatch.setenv("GROM_TPU_TORCH_ENGINE", "mesh")
+    assert resolve_engine() == "mesh"
     monkeypatch.setenv("GROM_TPU_TORCH_ENGINE", "tpu")
     with pytest.raises(ValueError):
         resolve_engine()
     monkeypatch.setenv("GROM_TPU_TORCH_ENGINE", "auto")
-    for avail, want in ((False, "host"), (True, "torch")):
+    # auto: mesh with more than one card, torch with one, host with none
+    for avail, count, want in ((False, 0, "host"), (True, 1, "torch"),
+                               (True, 2, "mesh"), (True, 8, "mesh")):
         monkeypatch.setattr(torch.cuda, "is_available", lambda a=avail: a)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=count: c)
         assert resolve_engine() == want
         assert "engine auto -> %s" % want in capsys.readouterr().err
 
@@ -168,19 +184,22 @@ def test_cli_never_imports_jax(tmp_path):
     assert _rows(out) == _rows(os.path.join(d, "oracle.vcf"))
 
 
-def test_torch_engine_never_imports_jax(tmp_path):
-    """A full in-process run of the torch engine (plain kernels) leaves
-    ``jax`` out of sys.modules."""
+@pytest.mark.parametrize("engine", ["torch", "mesh"])
+def test_torch_engine_never_imports_jax(tmp_path, engine):
+    """A full in-process run of a device engine (plain kernels, the SV
+    scorer on) leaves ``jax`` out of sys.modules."""
     d = os.path.join(DATA, "ds200k")
     out = str(tmp_path / "o.vcf")
     code = (
         "import sys\n"
         "from grom_tpu.config import GromConfig\n"
         "from grom_tpu_torch.driver import run\n"
-        "run(GromConfig(bam=%r, ref_fasta=%r, out_vcf=%r), engine='torch',"
+        "from grom_tpu_torch.ops import sv_device\n"
+        "run(GromConfig(bam=%r, ref_fasta=%r, out_vcf=%r), engine=%r,"
         " device='cpu')\n"
+        "assert sv_device._CACHE, 'the SV scorer was not used'\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
-        % (os.path.join(d, "ds.bam"), os.path.join(d, "ds.fa"), out))
-    r = _cli(["-c", code], {})
+        % (os.path.join(d, "ds.bam"), os.path.join(d, "ds.fa"), out, engine))
+    r = _cli(["-c", code], {"GROM_TPU_DEVICE_SV": ""})
     assert r.returncode == 0, r.stderr[-3000:]
     assert _rows(out) == _rows(os.path.join(d, "oracle.vcf"))

@@ -5,8 +5,8 @@ reference-binary oracles."""
 
 import os
 
-from tests.test_torch_slice import DATA, DATE, _cfg, _read
-from tests.test_full_parity import _rows
+from test_torch_slice import DATA, DATE, _cfg, _read
+from test_full_parity import _rows
 
 
 def test_torch_whole_batch_matches_oracle(tmp_path, monkeypatch):
