@@ -13,17 +13,19 @@ non-zero without its result line:
    exactly, f64 bitwise against the plain version run on CPU copies;
 4. the committed fixtures through ``python -m grom_tpu_torch`` on the torch
    engine: rows against the reference-binary oracles, files byte for byte
-   against the port's host engine (grom_tpu's native engines);
+   against the port's own host engine (its native C / numpy engines);
 4b. the same fixtures on the mesh engine, against the oracles and the host
    engine's files; then ds200k in process on a 2x2 grid of cells all on
    the card, at 60 kb ingest chunks, so the depth carry crosses cells,
    launches and chunks on the card;
-5. real size: one 24 Mb chromosome at 30x (grom_tpu.testing.bulk_sim,
+5. real size: one 24 Mb chromosome at 30x (grom_tpu_torch.testing.bulk_sim,
    seed 5), host engine then torch engine, VCF and .ctx.vcf byte-identical;
-   the launch counts of the torch run; then every kernel of that path
-   against its plain version, bitwise and timed beside it on the card, on
-   the largest inputs that run handed it (a full 2^18-base tile for the
-   tile kernel);
+   the launch counts of the torch run, the card time of its seed_eval
+   launches (torch.profiler, and CUDA events around each launch) and the
+   card's busy time over the run; then every kernel of that path against
+   its plain version, bitwise and timed beside it on the card, on the
+   largest inputs that run handed it (a full 2^18-base tile for the tile
+   kernel);
 6. real size on the mesh engine: the same chromosome in a one-process NCCL
    group (its collectives are real NCCL calls on the card), on the 1x1
    grid of one card, byte-identical to phase 5's host output; the launch
@@ -31,9 +33,13 @@ non-zero without its result line:
    versions, bitwise and timed.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
-with the kernel table, and as the last line
+with the kernel table (each kernel's time beside its bound: the larger of
+the bytes it must move over the card's memory rate and its operations
+over the peak rate of their type, counted from this run's inputs), and as
+the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Everything it writes goes under build/chip_smoke/.
+Everything it writes goes under build/; it imports nothing of jax or of
+grom_tpu.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -87,6 +94,13 @@ FIXTURES = [
 ]
 # fixtures whose .ctx.vcf oracle the host engine is held to
 CTX_ORACLES = ("ds200k", "ctx2x60k")
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM3
+# bandwidth, FP64 and FP32 outside the tensor cores (int32 is no faster
+# than FP32 there)
+HBM_BYTES_S = 3.35e12
+F64_OPS_S = 34e12
+F32_OPS_S = 67e12
 
 BULK = dict(length=24_000_000, coverage=30.0, seed=5, snp_rate=1e-3,
             hotspots=[(6_000_000, 6_020_000, 20.0)],
@@ -138,7 +152,7 @@ def run_on_grid(argv, shape=(2, 2)) -> float:
     grid of ``shape`` cells, all on cuda:0; returns its wall seconds."""
     import torch
 
-    from grom_tpu.cli import parse_args
+    from grom_tpu_torch.cli import parse_args
     from grom_tpu_torch.driver import run
     from grom_tpu_torch.parallel.mesh import make_mesh
     cfg = parse_args(list(argv))
@@ -181,31 +195,46 @@ def same_files(a_vcf: str, b_vcf: str) -> None:
             raise AssertionError("%s and %s differ" % (a, b))
 
 
-def _parity():
-    """tests/test_full_parity.py, the repo's row comparison against the
-    reference-binary oracles (loaded by path: ``tests`` is no package)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "grom_full_parity", os.path.join(REPO, "tests", "test_full_parity.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def _rows(path):
+    """The records of a VCF (tests/test_full_parity.py ``_rows``)."""
+    with open(path) as f:
+        return [ln.rstrip("\n") for ln in f if not ln.startswith("#")]
+
+
+def _rows_equal(a, b) -> bool:
+    """tests/test_full_parity.py ``_rows_equal``: equal, or a CNV row whose
+    SD and Z differ by at most 1e-4 relative (the reference's pval2sd
+    bisection depends on its libc's last-ulp pow())."""
+    if a == b:
+        return True
+    ta, tb = a.split("\t"), b.split("\t")
+    if len(ta) != len(tb) or ta[:9] != tb[:9]:
+        return False
+    if not ta[8].startswith("SD:Z:CN"):
+        return False
+    fa, fb = ta[9].split(":"), tb[9].split(":")
+    if len(fa) != 4 or len(fb) != 4:
+        return False
+    for i in (0, 1):
+        va, vb = float(fa[i]), float(fb[i])
+        if abs(va - vb) > 1e-4 * max(abs(vb), 1e-300):
+            return False
+    return fa[2] == fb[2] and fa[3] == fb[3]
 
 
 def rows_match_oracle(got_vcf: str, oracle_vcf: str) -> int:
-    par = _parity()
-    got, want = par._rows(got_vcf), par._rows(oracle_vcf)
+    got, want = _rows(got_vcf), _rows(oracle_vcf)
     if len(got) != len(want):
         raise AssertionError("%s: %d rows, oracle %d"
                              % (got_vcf, len(got), len(want)))
     for a, b in zip(got, want):
-        if not par._rows_equal(a, b):
+        if not _rows_equal(a, b):
             raise AssertionError("%s: row %r, oracle %r" % (got_vcf, a, b))
     return len(got)
 
 
 def count_rows(vcf: str):
-    rows = _parity()._rows(vcf)
+    rows = _rows(vcf)
     cnv = sum(1 for r in rows if "SD:Z:CN" in r)
     snv = sum(1 for r in rows if r.split("\t")[4] in ("A", "C", "G", "T"))
     return len(rows), snv, cnv
@@ -250,7 +279,7 @@ class Recorder:
         if name == "zscores":
             return (int(args[0].shape[0]),)
         if name == "seed_eval":
-            return (int(out[0].sum()), int(args[1].shape[0]))
+            return (int(out[0].sum()), int(args[1].shape[0]))   # f1
         if name == "null_model":
             return (len(args[2].s),)
         if name == "rd_scatter":
@@ -276,6 +305,154 @@ class Recorder:
     def __exit__(self, *exc):
         for mod, attr, fn in self._saved.values():
             setattr(mod, attr, fn)
+
+
+class LaunchTimer:
+    """While a run is inside it, CUDA events on the current stream around
+    every call of the kernel wrapper ``mod.attr``."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr, self.events = mod, attr, []
+
+    def __enter__(self):
+        import torch
+        self.fn = fn = getattr(self.mod, self.attr)
+
+        def wrap(*a):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        setattr(self.mod, self.attr, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.fn)
+
+    def total_ms(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+@contextlib.contextmanager
+def card_profile():
+    """torch.profiler over the card's activity only (kernels, copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield prof
+
+
+def device_times(prof) -> dict:
+    """Card time of a profiled window: ms per kernel name, and the ms of
+    copies and memsets."""
+    kernels, other = {}, 0.0
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            other += us / 1e3
+        else:
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    return {"kernels": kernels, "kernel_ms": sum(kernels.values()),
+            "other_ms": other}
+
+
+def _nbytes(x) -> int:
+    """Bytes of every tensor and array in ``x`` (also inside tuples,
+    lists and dicts)."""
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, np.ndarray):
+        return x.nbytes
+    if isinstance(x, dict):
+        return sum(_nbytes(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(v) for v in x)
+    return 0
+
+
+def _covered(starts, ends) -> int:
+    """Positions in the union of the intervals [starts, ends)."""
+    import numpy as np
+    o = np.argsort(starts, kind="stable")
+    s, e = np.asarray(starts)[o], np.asarray(ends)[o]
+    prev = np.concatenate([[np.iinfo(np.int64).min],
+                           np.maximum.accumulate(e)[:-1]])
+    return int(np.maximum(e - np.maximum(s, prev), 0).sum())
+
+
+def bound(name, args, out):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one call:
+    each input byte the function needs read once and each output byte
+    written once, over the card's memory rate, against the operations
+    this call's data needs over the peak rate of their type."""
+    import numpy as np
+    if name == "tile_accumulate":
+        t = args[0]
+        ev = int(t.cum[-1])
+        # per aligned base: its read base and quality byte, and the tallies
+        # it adds to (class channel, bq, bq_all, mq, mq_all, n_hi, rc_all)
+        nb = (_nbytes([v for k, v in t._asdict().items()
+                       if k not in ("seq", "qual")]) + 2 * ev + _nbytes(out))
+        ops, rate = 8 * ev, F32_OPS_S
+    elif name == "zscores":
+        # the per-base inputs and z; the sorted bin rows are searched, not
+        # streamed, so they are not counted
+        tables = args[5]
+        n = int(args[0].shape[0])
+        nb = (_nbytes(args[:5]) + _nbytes(out)
+              + _nbytes([v for k, v in tables._asdict().items()
+                         if k != "mat"]))
+        ops, rate = 6 * n, F64_OPS_S
+    elif name == "seed_eval":
+        si, seeds, _, minw = args[:4]
+        f1, n = out[0].cpu().numpy(), out[4].cpu().numpy()   # packed rows
+        seeds = seeds.cpu().numpy()
+        L = int(si.svals.shape[0])
+        steps = np.minimum(f1 + 1, n)
+        run = np.minimum(f1, n)
+        # svals (f64) and one byte of flags per position a window reaches,
+        # the seeds and their classes, five outputs, win_std
+        nb = (9 * _covered(seeds, np.minimum(seeds + steps, L))
+              + 9 * len(seeds) + 33 * len(seeds) + 8 * (int(steps.max()) + 1))
+        # one add per step of the running total; per grow step the
+        # count x stdev product and the score division
+        ops = int(run.sum()) + 2 * int(np.maximum(run - minw, 0).sum())
+        rate = F64_OPS_S
+    elif name == "null_model":
+        z, gate, seg = args[:3]
+        L = int(z.shape[0])
+        ends = np.minimum(seg.s + seg.n, L)
+        # per position of a segment: its prefix add (z and count), then per
+        # window length the carried add, the mean's division, its square
+        # and the sum's add
+        nb = 9 * _covered(seg.s, ends) + _nbytes(list(seg)) + _nbytes(out)
+        ops, rate = 6 * int(seg.n.sum()), F64_OPS_S
+    elif name == "rd_scatter":
+        nb = _nbytes(args[:4]) + _nbytes(out)
+        ops, rate = 3 * int(args[0].shape[0]), F32_OPS_S
+    elif name == "rd_scan":
+        nb = _nbytes(args[:2]) + _nbytes(out)
+        ops, rate = 3 * int(args[0].shape[1]) + int(args[2]), F32_OPS_S
+    else:   # sv_score
+        n = int(args[0].shape[0])
+        tables = args[9]
+        # the entries and outputs, two table entries gathered per entry,
+        # the etype index tables; about ten f64 operations per entry
+        nb = (_nbytes(args[:9]) + _nbytes(out) + 16 * n
+              + _nbytes([tables.kind, tables.rev]))
+        ops, rate = 10 * n, F64_OPS_S
+    t_bytes, t_ops = nb / HBM_BYTES_S, ops / rate
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nb, ops)
+
 
 
 def _to(x, device):
@@ -375,7 +552,9 @@ def check_kernels(rec: Recorder, label: str, timed: bool,
         want = plain(*_to(args, "cpu"))
         cpu_s = time.perf_counter() - t0
         err, _ = _diff(got, want, exact=True)
-        row = {"max_abs_err": err, "shape": list(weight)}
+        b_ms, b_by, b_bytes, b_ops = bound(name, args, got)
+        row = {"max_abs_err": err, "shape": list(weight), "bound_ms": b_ms,
+               "bound_by": b_by}
         msg = ("%s %s %s: equal to the plain version on CPU copies "
                "(plain on CPU %.3f s)" % (label, name, weight, cpu_s))
         if timed:
@@ -384,10 +563,22 @@ def check_kernels(rec: Recorder, label: str, timed: bool,
             _, rel = _diff(got, on_card, exact=False)
             row["ms"] = _ms(lambda: kernel(*args))
             row["plain_ms"] = _ms(lambda: plain(*args))
+            with card_profile() as prof:
+                kernel(*args)
+                torch.cuda.synchronize()
+            parts = {}
+            for key, ms in device_times(prof)["kernels"].items():
+                m = re.search(r"(\w+)\(", key)
+                k = m.group(1) if m else key
+                parts[k] = parts.get(k, 0.0) + ms
             row["rel_vs_plain_on_card"] = rel
             msg += ("; max rel diff to plain on card %.3g; kernel %.3f ms, "
-                    "plain on card %.3f ms"
-                    % (rel, row["ms"], row["plain_ms"]))
+                    "plain on card %.3f ms; bound %.4f ms by %s (%d bytes, "
+                    "%d operations), kernel at %.2f%% of it"
+                    % (rel, row["ms"], row["plain_ms"], b_ms, b_by, b_bytes,
+                       b_ops, 100.0 * b_ms / row["ms"]))
+            msg += "; one call's kernels (torch.profiler): %s" % ", ".join(
+                "%s %.4f ms" % kv for kv in sorted(parts.items()))
         say(msg)
         results[name] = row
     return results
@@ -413,12 +604,16 @@ def phase_toolchain() -> str:
         say("triton", triton.__version__)
     except ImportError:
         say("triton: not importable")
-    from grom_tpu.native import get_lib
-    if get_lib() is None:
-        raise RuntimeError("grom_tpu's native library (native/, make) did "
+    from grom_tpu_torch.native import get_lib
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("the port's native library (native/*.c, cc) did "
                            "not build: the host engines would run their "
                            "pure-Python fallbacks")
-    say("grom_tpu native library: loaded")
+    path = os.path.relpath(lib._name, REPO)
+    if not path.startswith(os.path.join("build", "grom_tpu_torch", "")):
+        raise AssertionError("native library loaded from %s" % path)
+    say("native library (native/*.c):", path)
     smi = nvidia_smi_line()
     say("card", smi, "| torch sees", torch.cuda.device_count(), "x",
         torch.cuda.get_device_name(0))
@@ -462,7 +657,7 @@ def fixture_run(fx: str, flags, tag: str):
     """(argv without -o, output stem) of one FIXTURES row; builds cnvmany
     under build/ at first use."""
     if fx == "cnvmany":
-        from grom_tpu.testing import cnvmany
+        from grom_tpu_torch.testing import cnvmany
         prefix = os.path.join(OUT, "cnvmany", "ds")
         if not os.path.exists(prefix + ".bam.bai"):
             os.makedirs(os.path.dirname(prefix), exist_ok=True)
@@ -534,7 +729,7 @@ def phase_fixtures_mesh() -> None:
 def bulk_args():
     """argv (without -o) of the real-size dataset, generated under build/
     at first use."""
-    from grom_tpu.testing.bulk_sim import bulk_dataset
+    from grom_tpu_torch.testing.bulk_sim import bulk_dataset
     prefix = os.path.join(REPO, "build", "bulk_%d_seed%d" % (
         BULK["length"], BULK["seed"]), "m")
     if not os.path.exists(prefix + ".bam.bai"):
@@ -548,8 +743,9 @@ def bulk_args():
 def phase_real_size() -> dict:
     import torch
 
-    from grom_tpu.utils import timing
     from grom_tpu_torch import _build
+    from grom_tpu_torch.ops import cnv_device
+    from grom_tpu_torch.utils import timing
     say("== 5. real size: %d Mb at %gx" % (BULK["length"] // 10**6,
                                            BULK["coverage"]))
     args = bulk_args()
@@ -559,12 +755,14 @@ def phase_real_size() -> dict:
 
     timing.timing_enable(True)
     timing.reset()
-    with Recorder() as rec:
-        _build.reset_launches()
-        t_dev = run_cli(args + ["-o", dev_vcf], "torch")
-        launches = dict(_build.LAUNCHES)
+    with LaunchTimer(cnv_device, "seed_eval") as seed_ev, Recorder() as rec:
+        with card_profile() as prof:
+            _build.reset_launches()
+            t_dev = run_cli(args + ["-o", dev_vcf], "torch")
+            launches = dict(_build.LAUNCHES)
     snap = timing.report(file=io.StringIO())   # the driver printed it
     timing.timing_enable(False)
+    card = device_times(prof)
 
     same_files(dev_vcf, host_vcf)
     n, snv, cnv = count_rows(dev_vcf)
@@ -590,6 +788,18 @@ def phase_real_size() -> dict:
         "launches %.2f s and the host outer walk %.2f s (%.1f%% of the "
         "CNV stage)" % (cnv_s, scan_s, seed_s, scan_s - seed_s,
                         100.0 * (scan_s - seed_s) / max(cnv_s, 1e-9)))
+    seed_prof = sum(v for k, v in card["kernels"].items() if "seed_eval" in k)
+    say("seed_eval card time over the run: %.3f ms in %d launches "
+        "(torch.profiler; %s), %.3f ms (CUDA events around each launch); "
+        "cnv.seed_eval_dev phase %.3f s"
+        % (seed_prof, launches["seed_eval"],
+           ", ".join("%s %.3f ms" % kv for kv in sorted(card["kernels"].items())
+                     if "seed_eval" in kv[0]) or "no device time",
+           seed_ev.total_ms(), seed_s))
+    say("card busy over the torch run (torch.profiler: kernels %.1f ms, "
+        "copies and sets %.1f ms) of %.2f s wall: idle share %.4f"
+        % (card["kernel_ms"], card["other_ms"], t_dev,
+           1.0 - (card["kernel_ms"] + card["other_ms"]) / 1e3 / t_dev))
 
     say("-- kernels against their plain versions (inputs of this run; "
         "tolerance: integers exact, f64 bitwise)")
@@ -643,6 +853,16 @@ def phase_real_size_mesh() -> dict:
             "tolerance: integers exact, f64 bitwise)")
         res = check_kernels(rec, "mesh real-size", timed=True,
                             names=MESH_ONLY + ("sv_score",))
+        # no library call computes either function; one call does a part
+        pos, w_mq, n = (rec.best["rd_scatter"][1][i] for i in (0, 1, 4))
+        idx = pos.long()
+        buf = torch.zeros(n, dtype=torch.int32, device=pos.device)
+        delta = rec.best["rd_scan"][1][0]
+        say("partial yardsticks: index_add_ of one of rd_scatter's three "
+            "channels %.4f ms; torch.cumsum of rd_scan's deltas (no carry, "
+            "no histogram) %.4f ms"
+            % (_ms(lambda: buf.index_add_(0, idx, w_mq)),
+               _ms(lambda: torch.cumsum(delta, 1, dtype=torch.int32))))
         for k, row in res.items():
             row["launches"] = launches[k]
         torch.cuda.synchronize()
@@ -662,9 +882,6 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    # grom_tpu's slab allocator would keep a warm pool in /dev/shm; keep
-    # every file of the run under the checkout
-    os.environ.setdefault("GROM_TPU_SHM_POOL", "0")
     shutil.rmtree(OUT, ignore_errors=True)
     os.makedirs(OUT)
     t0 = time.perf_counter()
@@ -675,14 +892,18 @@ def main() -> int:
     phase_fixtures_mesh()
     res = phase_real_size()
     res.update(phase_real_size_mesh())
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                              "grom_tpu")]
+    if foreign:
+        raise AssertionError("imported: %s" % foreign)
     say("== done in %.1f s" % (time.perf_counter() - t0))
     say(smi)
     table = [dict(name=k, route="cuda", source=KERNELS[k][0],
                   replaces=KERNELS[k][1], launches=res[k]["launches"],
                   max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
-                  plain_ms=res[k]["plain_ms"]) for k in KERNELS]
+                  plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
+                  bound_by=res[k]["bound_by"], library_ms=None)
+             for k in KERNELS]
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

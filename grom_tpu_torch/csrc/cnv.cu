@@ -3,7 +3,7 @@
 //
 // Replaces, in grom_tpu/ops/cnv_device.py:
 //   zscores_device (inner ``kern``)    -> gt_zscores
-//   seed_eval_device (vmapped ``one``) -> gt_seed_eval
+//   seed_eval_device (vmapped ``one``) -> gt_seed_eval (two tiers)
 //   null_model_device (``eval_batch``) -> gt_null_prefix + gt_null_accum
 //
 // What bounds them on an H100:
@@ -13,9 +13,29 @@
 //     arithmetic. The sticky-class forward fill crosses blocks, so it is a
 //     separate block-maximum pass, a one-block scan over blocks and a
 //     per-base resolve with an in-block scan.
-//   * seed evaluation: one thread per (seed, class), a sequential f64 loop
-//     over the seed's window up to its first fail. Bounded by the longest
-//     surviving seed (up to maxw = 10000 steps); most seeds fail early.
+//   * seed evaluation: per (seed, class), a walk over the seed's window up
+//     to its first fail: integer counts, one f64 add per offset into a
+//     running total that must stay a sequential chain in the host's order,
+//     and an f64 division per grow offset. Its bound is the card's FP64
+//     rate over those adds and divisions (tens of microseconds for the
+//     largest launch of a 24 Mb run), with each position read once.
+//     Most seeds fail within a few offsets; a seed whose first window
+//     passes may walk up to maxw = 10000. With one thread per seed a warp
+//     runs as long as its longest seed, each step waits on its loads and
+//     its division, and the loads scatter. So two tiers, as grom_tpu's
+//     two-width scheme (valid because a fail depends only on data before
+//     it). Tier 1: one thread per seed over its first window (minw
+//     offsets rounded up to 32), loading 16 offsets at a time. The seeds
+//     still walking are compacted on the card (an atomic slot count, no
+//     host sync). Tier 2 gives each of them one warp that reads 32
+//     consecutive offsets at a time, coalesced: svals plus one flag byte
+//     that packs the five per-position conditions. The counts and the
+//     first fail are ballot prefix counts; only the adds of the running
+//     total stay serial (lane 0, from shared memory); the divisions, the
+//     good tests and the maxima run on all 32 lanes. Tier 2 holds the
+//     largest launches: about 8 instructions per window offset, most of
+//     them lane 0's chain and the ballots, so the rate at which a warp
+//     scheduler starts instructions bounds it, far above the FP64 bound.
 //   * null model: pass A writes each segment's sequential prefix of gated z
 //     and of gate counts to scratch (one thread per segment, segments in
 //     bounded batches); pass B gives every window length one owner thread
@@ -197,91 +217,276 @@ __global__ void zs_eval(ZIn z, const int64_t* carry, double* out) {
   out[i] = z.w[i] * base;
 }
 
+// Per-position flags of the seed walk, one byte each (ops/cnv_device.py
+// pack_flags).
+constexpr uint8_t F_LOWA = 1;    // low_acgt == 0 (gated)
+constexpr uint8_t F_SOK0 = 2;    // passes the class-0 seed threshold
+constexpr uint8_t F_SOK1 = 4;    // passes the class-1 seed threshold
+constexpr uint8_t F_GCLS1 = 8;   // the last gated-definite base is class 1
+constexpr uint8_t F_GDEF = 16;   // the base itself is gated-definite
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int T1_BATCH = 16;     // offsets a tier-1 thread loads at once
+
 struct SeedIn {
   const double* svals;
-  const uint8_t* lowa;
-  const uint8_t* sok0;
-  const uint8_t* sok1;
-  const int64_t* gcls_idx;
-  const int8_t* gcls_val;
+  const uint8_t* flags;
   const double* win_std;   // [maxw + 1]
   long L;
   long minw;
   long maxw;
   double max_low;
   long be;
+  long tier1;              // minw rounded up to 32
 };
 
-__global__ void seed_eval(SeedIn s, const int64_t* seeds,
-                          const int8_t* seed_cls, long NS, int64_t* f1_out,
-                          uint8_t* begin_out, int64_t* c_end_out,
-                          double* c_sd_out, int64_t* n_out) {
+// A seed still walking after tier 1: where its walk stands at offset
+// ``tier1``.
+struct SeedCarry {
+  double lt;            // running total
+  double c_sd0;         // first-window score when it begins, else 0
+  double c_sd_grow;     // best grow score so far
+  int64_t t;            // index of the seed
+  int32_t n;            // window length
+  int32_t inc_before;   // included bases so far
+  int32_t lc;           // gated bases so far
+  int32_t lastg;        // last good offset, -1 when none
+  int32_t seen;         // a gated-definite base lies in the window so far
+  int32_t begin0;       // the first window begins a call
+};
+
+__device__ __forceinline__ long window_len(const SeedIn& s, int64_t seed) {
+  long n = s.be - seed;
+  if (n < s.minw) n = s.minw;
+  if (n > s.maxw) n = s.maxw;
+  return n;
+}
+
+// The five outcomes of seed t, rows of the packed [5, NS] output: f1,
+// begin, c_end, c_sd (its bits), n.
+__device__ __forceinline__ void put(int64_t* out, long NS, long t, long f1,
+                                    bool begin, int64_t c_end, double c_sd,
+                                    long n) {
+  out[t] = f1;
+  out[NS + t] = begin ? 1 : 0;
+  out[2 * NS + t] = c_end;
+  out[3 * NS + t] = __double_as_longlong(c_sd);
+  out[4 * NS + t] = n;
+}
+
+// The grow test at offset j (>= minw): a good base updates the best score
+// and the last good offset, as the host loop does.
+__device__ __forceinline__ bool grow_good(const SeedIn& s, long j, bool inc,
+                                          double lt, long lc, double* tsg) {
+  if (!inc || lc <= 0) return false;
+  const long wl = j + 1;
+  const double wsg = s.win_std[wl < s.maxw ? wl : s.maxw];
+  if (!(wsg > 0.0)) return false;
+  *tsg = lt / ((double)lc * wsg);
+  return *tsg >= 3.0 && (double)(wl - lc) / (double)wl <= s.max_low;
+}
+
+// Tier 1: one thread per seed over its first ``tier1`` offsets, or up to
+// its first fail. A seed that ends there writes its outcomes; a seed still
+// walking takes a slot (atomic count) for tier 2 and leaves its carry.
+__global__ void seed_eval_tier1(SeedIn s, const int64_t* seeds,
+                                const int8_t* seed_cls, long NS,
+                                int64_t* out, SeedCarry* carry,
+                                int* n_long) {
   const long t = (long)blockIdx.x * BLOCK + threadIdx.x;
   if (t >= NS) return;
   const int64_t seed = seeds[t];
   const int cls_m = seed_cls[t];
-  long n = s.be - seed;
-  if (n < s.minw) n = s.minw;
-  if (n > s.maxw) n = s.maxw;
-  const double ws_min = s.win_std[s.minw];
-
-  long f1 = n;
-  long inc_before = 0;        // inc count before offset j
+  const long n = window_len(s, seed);
+  const long lim = n < s.tier1 ? n : s.tier1;
+  long f1 = -1;               // the first fail, -1 while none
+  long inc_before = 0;
   long low_count0 = 0;        // gated bases among the first minw
   long lc = 0;                // gated bases up to j
+  bool seen = false;
   double lt = 0.0;            // sequential total, as the host accumulates
   double low_total0 = 0.0;
   bool any_good = false;
   long lastg = -1;
   double c_sd_grow = 0.0;
-  for (long j = 0; j < n; ++j) {
-    const long p = seed + j;
-    const bool valid = p < s.L;
-    // class at offset j: the global gated state if its last update is
-    // inside the window, else the seed's outer class
-    int cls_w = cls_m;
-    if (valid && s.gcls_idx[p] >= seed) cls_w = s.gcls_val[p];
-    const bool lwp = valid && s.lowa[p];
-    const bool sokw = valid && (cls_w == 0 ? s.sok0[p] : s.sok1[p]);
-    const bool inc = lwp && sokw;
-    const long wl = j + 1;
-    if (!inc && 2 * inc_before < wl) { f1 = j; break; }
-    inc_before += inc;
-    const double svp = valid ? s.svals[p] : 0.0;
-    const double contrib = j < s.minw ? svp : (lwp ? svp : 0.0);
-    lt = lt + contrib;
-    if (j < s.minw) {
-      low_count0 += lwp;
-      if (j == s.minw - 1) {
-        low_total0 = lt;
-        lc = low_count0;
-      }
-      continue;
+  // offsets in batches: a batch's loads are all in flight at once, so a
+  // step waits on the running total, not on memory
+  for (long j0 = 0; j0 < lim && f1 < 0; j0 += T1_BATCH) {
+    uint8_t fb[T1_BATCH];
+    double sb[T1_BATCH];
+#pragma unroll
+    for (int k = 0; k < T1_BATCH; ++k) {
+      const long p = seed + j0 + k;
+      const bool valid = j0 + k < lim && p < s.L;
+      fb[k] = valid ? s.flags[p] : 0;
+      sb[k] = valid ? s.svals[p] : 0.0;
     }
-    lc += lwp;
-    const double wsg = s.win_std[wl < s.maxw ? wl : s.maxw];
-    const double tsg = (lc > 0 && wsg > 0.0) ? lt / ((double)lc * wsg) : 0.0;
-    const bool good = inc && wsg > 0.0 && tsg >= 3.0
-        && (double)(wl - lc) / (double)wl <= s.max_low;
-    if (good) {
-      if (!any_good || tsg > c_sd_grow) c_sd_grow = tsg;
-      any_good = true;
-      lastg = j;
+#pragma unroll
+    for (int k = 0; k < T1_BATCH; ++k) {
+      const long j = j0 + k;
+      if (j >= lim) break;
+      const uint8_t fl = fb[k];
+      // the class at offset j: the global gated state once a
+      // gated-definite base lies inside the window, else the seed's outer
+      // class
+      seen = seen || (fl & F_GDEF);
+      const int cls_w = seen ? ((fl & F_GCLS1) ? 1 : 0) : cls_m;
+      const bool lwp = fl & F_LOWA;
+      const bool inc = lwp && (fl & (cls_w == 0 ? F_SOK0 : F_SOK1));
+      if (!inc && 2 * inc_before < j + 1) {
+        f1 = j;
+        break;
+      }
+      inc_before += inc;
+      const double svp = sb[k];
+      lt = lt + (j < s.minw ? svp : (lwp ? svp : 0.0));
+      if (j < s.minw) {
+        low_count0 += lwp;
+        if (j == s.minw - 1) {
+          low_total0 = lt;
+          lc = low_count0;
+        }
+        continue;
+      }
+      lc += lwp;
+      double tsg;
+      if (grow_good(s, j, inc, lt, lc, &tsg)) {
+        if (!any_good || tsg > c_sd_grow) c_sd_grow = tsg;
+        any_good = true;
+        lastg = j;
+      }
     }
   }
-  const bool ok_first = f1 >= s.minw;
+  const bool walking = f1 < 0 && lim < n;
+  if (f1 < 0) f1 = n;
+  const double ws_min = s.win_std[s.minw];
   const double ts0 = (low_count0 > 0 && ws_min > 0.0)
       ? low_total0 / ((double)low_count0 * ws_min) : 0.0;
-  const bool begin0 = ok_first && low_count0 > 0 && ws_min > 0.0
+  const bool begin0 = f1 >= s.minw && low_count0 > 0 && ws_min > 0.0
       && ts0 >= 3.0
       && (double)(s.minw - low_count0) / (double)s.minw <= s.max_low;
-  double c_sd = begin0 ? ts0 : 0.0;
-  if (any_good && c_sd_grow > c_sd) c_sd = c_sd_grow;
-  f1_out[t] = f1;
-  begin_out[t] = (begin0 || any_good) ? 1 : 0;
-  c_end_out[t] = any_good ? seed + lastg : (begin0 ? seed + s.minw : 0);
-  c_sd_out[t] = c_sd;
-  n_out[t] = n;
+  const double c_sd0 = begin0 ? ts0 : 0.0;
+  if (walking) {
+    SeedCarry c;
+    c.lt = lt;
+    c.c_sd0 = c_sd0;
+    c.c_sd_grow = c_sd_grow;
+    c.t = t;
+    c.n = (int32_t)n;
+    c.inc_before = (int32_t)inc_before;
+    c.lc = (int32_t)lc;
+    c.lastg = (int32_t)lastg;
+    c.seen = seen;
+    c.begin0 = begin0;
+    carry[atomicAdd(n_long, 1)] = c;
+    return;
+  }
+  const double c_sd = (any_good && c_sd_grow > c_sd0) ? c_sd_grow : c_sd0;
+  put(out, NS, t, f1, begin0 || any_good,
+      any_good ? seed + lastg : (begin0 ? seed + s.minw : 0), c_sd, n);
+}
+
+// Tier 2: one warp per seed still walking, 32 consecutive offsets a step.
+// The lanes load their offsets' svals and flags coalesced; the included
+// and gated counts and the first fail are ballot prefix counts (exact
+// integers); the running total stays one sequential chain in the host's
+// order, added by lane 0 from shared memory; the score divisions, the good
+// tests and the running maxima (order-free, so exact) run on all lanes.
+// Warps past the slot count exit.
+__global__ void seed_eval_tier2(SeedIn s, const int64_t* seeds,
+                                const int8_t* seed_cls, long NS,
+                                const SeedCarry* carry, const int* n_long,
+                                int64_t* out) {
+  __shared__ __align__(16) double chain[BLOCK];
+  const long w = ((long)blockIdx.x * BLOCK + threadIdx.x) >> 5;
+  if (w >= *n_long) return;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  const unsigned upto = below | (1u << lane);
+  double* ch = chain + (threadIdx.x & ~31);
+  const SeedCarry c = carry[w];
+  const int64_t seed = seeds[c.t];
+  const int cls_m = seed_cls[c.t];
+  const long n = c.n;
+  double lt = c.lt;
+  long inc_before = c.inc_before;
+  long lc = c.lc;
+  long lastg = c.lastg;
+  bool seen = c.seen;
+  bool any_good = c.lastg >= 0;
+  double c_sd_grow = c.c_sd_grow;
+  long f1 = n;
+  // this lane's offset of the next step, loaded one step ahead
+  auto load = [&](long j, uint8_t* fl, double* sv) {
+    const long p = seed + j;
+    const bool valid = j < n && p < s.L;
+    *fl = valid ? s.flags[p] : 0;
+    *sv = valid ? s.svals[p] : 0.0;
+  };
+  uint8_t fl_next;
+  double sv_next;
+  load(s.tier1 + lane, &fl_next, &sv_next);
+  for (long j0 = s.tier1; j0 < n; j0 += 32) {
+    const long j = j0 + lane;
+    const uint8_t fl = fl_next;
+    const double svp = sv_next;
+    if (j0 + 32 < n) load(j + 32, &fl_next, &sv_next);
+    const unsigned gdef = __ballot_sync(FULL, fl & F_GDEF);
+    const bool seen_j = seen || (gdef & upto);
+    const int cls_w = seen_j ? ((fl & F_GCLS1) ? 1 : 0) : cls_m;
+    const bool lwp = fl & F_LOWA;
+    const bool inc = lwp && (fl & (cls_w == 0 ? F_SOK0 : F_SOK1));
+    const unsigned incs = __ballot_sync(FULL, inc);
+    const long before = inc_before + __popc(incs & below);
+    const unsigned fails =
+        __ballot_sync(FULL, j < n && !inc && 2 * before < j + 1);
+    const int first_fail = fails ? __ffs(fails) - 1 : 32;
+    // the running total: ((lt + c0) + c1) + ..., in offset order
+    ch[lane] = lwp ? svp : 0.0;
+    __syncwarp();
+    if (lane == 0) {
+      double2* ch2 = reinterpret_cast<double2*>(ch);
+      double run = lt;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        double2 v = ch2[k];
+        run = run + v.x;
+        v.x = run;
+        run = run + v.y;
+        v.y = run;
+        ch2[k] = v;
+      }
+    }
+    __syncwarp();
+    const double lt_j = ch[lane];
+    lt = ch[31];
+    __syncwarp();
+    const unsigned lws = __ballot_sync(FULL, lwp);
+    const long lc_j = lc + __popc(lws & upto);
+    double tsg = 0.0;
+    const bool good = j < n && lane < first_fail
+        && grow_good(s, j, inc, lt_j, lc_j, &tsg);
+    const unsigned goods = __ballot_sync(FULL, good);
+    if (goods) {
+      double m = good ? tsg : 0.0;   // every good score is >= 3
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmax(m, __shfl_xor_sync(FULL, m, o));
+      if (!any_good || m > c_sd_grow) c_sd_grow = m;
+      any_good = true;
+      lastg = j0 + 31 - __clz(goods);
+    }
+    if (fails) {
+      f1 = j0 + first_fail;
+      break;
+    }
+    inc_before += __popc(incs);
+    lc += __popc(lws);
+    seen = seen || gdef;
+  }
+  if (lane != 0) return;
+  const double c_sd = (any_good && c_sd_grow > c.c_sd0) ? c_sd_grow : c.c_sd0;
+  put(out, NS, c.t, f1, c.begin0 || any_good,
+      any_good ? seed + lastg : (c.begin0 ? seed + s.minw : 0), c_sd, n);
 }
 
 // Pass A: per segment, the sequential prefix of gated z and gate counts
@@ -374,29 +579,40 @@ int gt_zscores(void* depth, void* mq, void* gc, void* low_acgt, void* w,
   return (int)cudaGetLastError();
 }
 
-int gt_seed_eval(void* svals, void* lowa, void* sok0, void* sok1,
-                 void* gcls_idx, void* gcls_val, void* win_std, long L,
-                 long minw, long maxw, double max_low, long be, void* seeds,
-                 void* seed_cls, long NS, void* f1, void* begin, void* c_end,
-                 void* c_sd, void* n, void* stream) {
+// Bytes of the scratch ``gt_seed_eval`` needs for NS seeds.
+long gt_seed_scratch_bytes(long NS) {
+  return 16 + NS * (long)sizeof(SeedCarry);
+}
+
+// Outcomes of NS seeds into the packed int64 [5, NS] ``out``; ``scratch``
+// holds gt_seed_scratch_bytes(NS) bytes.
+int gt_seed_eval(void* svals, void* flags, void* win_std, long L, long minw,
+                 long maxw, double max_low, long be, void* seeds,
+                 void* seed_cls, long NS, void* scratch, void* out,
+                 void* stream) {
   if (NS <= 0) return (int)cudaGetLastError();
   SeedIn in;
   in.svals = (const double*)svals;
-  in.lowa = (const uint8_t*)lowa;
-  in.sok0 = (const uint8_t*)sok0;
-  in.sok1 = (const uint8_t*)sok1;
-  in.gcls_idx = (const int64_t*)gcls_idx;
-  in.gcls_val = (const int8_t*)gcls_val;
+  in.flags = (const uint8_t*)flags;
   in.win_std = (const double*)win_std;
   in.L = L;
   in.minw = minw;
   in.maxw = maxw;
   in.max_low = max_low;
   in.be = be;
-  seed_eval<<<blocks_for(NS), BLOCK, 0, (cudaStream_t)stream>>>(
-      in, (const int64_t*)seeds, (const int8_t*)seed_cls, NS,
-      (int64_t*)f1, (uint8_t*)begin, (int64_t*)c_end, (double*)c_sd,
-      (int64_t*)n);
+  in.tier1 = (minw + 31) / 32 * 32;
+  cudaStream_t st = (cudaStream_t)stream;
+  int* n_long = (int*)scratch;
+  SeedCarry* carry = (SeedCarry*)((char*)scratch + 16);
+  const cudaError_t set = cudaMemsetAsync(n_long, 0, sizeof(int), st);
+  if (set != cudaSuccess) return (int)set;
+  seed_eval_tier1<<<blocks_for(NS), BLOCK, 0, st>>>(
+      in, (const int64_t*)seeds, (const int8_t*)seed_cls, NS, (int64_t*)out,
+      carry, n_long);
+  // one warp per seed: room for every seed, warps past the count exit
+  seed_eval_tier2<<<blocks_for(NS * 32), BLOCK, 0, st>>>(
+      in, (const int64_t*)seeds, (const int8_t*)seed_cls, NS, carry, n_long,
+      (int64_t*)out);
   return (int)cudaGetLastError();
 }
 

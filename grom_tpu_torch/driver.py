@@ -15,11 +15,13 @@ engine hooks differ, so fixes made in the reference carry over by diff:
   lists on the device with a cross-cell carry;
 * both device engines score SV entries with ops/sv_device.py's scorer and
   run call/cnv.py's device CNV stage;
-* ``engine="host"`` runs grom_tpu's native C / numpy engines.
+* ``engine="host"`` runs the native C / numpy engines of the port's own
+  copies of grom_tpu's host modules (``call/``, ``ingest/``, native.py).
 
-There is no fallback from a kernel to its plain version or from a device
-engine to the host engine: a device engine asked for "cuda" without a card
-raises.
+The engine-free helpers of grom_tpu/driver.py are copied below as they
+are. There is no fallback from a kernel to its plain version or from a
+device engine to the host engine: a device engine asked for "cuda" without
+a card raises, and so does the default engine choice.
 """
 
 from __future__ import annotations
@@ -31,19 +33,15 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from grom_tpu.call import scan as scan_mod
-from grom_tpu.call import snv as snv_mod
-from grom_tpu.config import DerivedConfig, GromConfig
-from grom_tpu.driver import (_auto_chunk_bases, _ctx_path, _rd_only_arrays,
-                             _RdView, _start_first_chunk_prefetch,
-                             _streaming_insert_stats, _subset_reads,
-                             _sync_ingest)
-from grom_tpu.ingest import bam as bam_mod
-from grom_tpu.ingest import fasta as fasta_mod
-from grom_tpu.ingest.batches import build_batch
-from grom_tpu.ingest.insert_size import InsertStats, load_or_estimate
-from grom_tpu.stats import binom
-from grom_tpu.vcfio.writer import VcfWriter
+from grom_tpu_torch.call import scan as scan_mod
+from grom_tpu_torch.call import snv as snv_mod
+from grom_tpu_torch.config import DerivedConfig, GromConfig
+from grom_tpu_torch.ingest import bam as bam_mod
+from grom_tpu_torch.ingest import fasta as fasta_mod
+from grom_tpu_torch.ingest.batches import build_batch
+from grom_tpu_torch.ingest.insert_size import InsertStats, load_or_estimate
+from grom_tpu_torch.stats import binom
+from grom_tpu_torch.vcfio.writer import VcfWriter
 
 ENGINES = ("host", "torch", "mesh")
 
@@ -57,11 +55,12 @@ class RunResult:
 
 
 def resolve_engine() -> str:
-    """Which engine to run: GROM_TPU_TORCH_ENGINE = "host" (grom_tpu's
-    native C / numpy engines), "torch" (the port's kernels on one device),
+    """Which engine to run: GROM_TPU_TORCH_ENGINE = "host" (the native C /
+    numpy engines on the CPU), "torch" (the port's kernels on one device),
     "mesh" (the port's kernels over a grid of cells) or "auto" (default:
-    mesh with more than one CUDA device, torch with one, else host). An
-    auto choice is reported on stderr."""
+    mesh with more than one CUDA device, torch with one). With no CUDA
+    device, "auto" raises: the CPU runs only when asked for. An auto choice
+    is reported on stderr."""
     e = os.environ.get("GROM_TPU_TORCH_ENGINE", "auto")
     if e != "auto":
         if e not in ENGINES:
@@ -70,9 +69,10 @@ def resolve_engine() -> str:
         return e
     import torch
     if not torch.cuda.is_available():
-        e = "host"
-    else:
-        e = "mesh" if torch.cuda.device_count() > 1 else "torch"
+        raise RuntimeError("grom_tpu_torch runs on a CUDA device and none is "
+                           "available; set GROM_TPU_TORCH_ENGINE=host to run "
+                           "on the CPU")
+    e = "mesh" if torch.cuda.device_count() > 1 else "torch"
     print("grom_tpu_torch: engine auto -> %s" % e, file=sys.stderr,
           flush=True)
     return e
@@ -121,7 +121,7 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
     check_device(engine, device)
     if cfg.one_chromosome:
         return run_child_region(cfg, engine, device, mesh)
-    from grom_tpu.utils.timing import phase, report
+    from grom_tpu_torch.utils.timing import phase, report
     # progress prints mirroring the reference's stdout (src/GROM.c:22106-22111,
     # :22274-22275, :1421-1426)
     print("bam %s" % cfg.bam)
@@ -157,7 +157,7 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
 
     prelude = None
     if not cfg.vcf_output:
-        from grom_tpu.vcfio.tabular import main_prelude
+        from grom_tpu_torch.vcfio.tabular import main_prelude
         prelude = main_prelude(drv.insert_mean, drv.insert_min,
                                drv.insert_max, drv.read_len)
     writer = VcfWriter(cfg.out_vcf, cfg.ref_fasta, file_date, prelude=prelude)
@@ -211,7 +211,7 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
     writer.close()
 
     ctx_path = _ctx_path(cfg.out_vcf)
-    from grom_tpu.call.ctx import write_ctx_vcf
+    from grom_tpu_torch.call.ctx import write_ctx_vcf
     print("Translocations before filter: %d" % len(all_ctx))
     with phase("emit.ctx_merge"):
         n_bnd = write_ctx_vcf(ctx_path, all_ctx, header.ref_names, cfg, drv,
@@ -229,7 +229,7 @@ def _chromosome_stream(cfg: GromConfig, header, info, jobs, reads,
     FASTA (and, below GROM_TPU_STREAM_BASES, its reads) while chromosome N
     computes, double-buffered via a depth-1 queue. Without an index the
     pre-decoded whole-BAM arrays are sliced instead."""
-    from grom_tpu.utils.timing import phase
+    from grom_tpu_torch.utils.timing import phase
 
     if not streaming:
         for refid, fa_name in jobs:
@@ -327,6 +327,254 @@ def run_child_region(cfg: GromConfig, engine: str = "host",
     return RunResult(out_path, ctx_out, len(rows), ins)
 
 
+# ---------------------------------------------------------------------------
+# host helpers, copied from grom_tpu/driver.py as they are
+# ---------------------------------------------------------------------------
+
+# Ingest-chunk default (GROM_TPU_CHUNK_BASES overrides). 16Mb keeps the
+# decoded read tensors at ~1.2GB/chunk at 30x: with the producer queue and
+# the current chunk that's ~3 chunk generations live, and 16Mb measured
+# no slower end-to-end than 32Mb (2x100Mb@30x -P 2 experiment: worker peak
+# RSS 15.1GB -> 11.5GB, equal wall) — a 16Mb chunk still spans thousands
+# of BGZF blocks, so the threaded inflate stays saturated.
+DEFAULT_CHUNK_BASES = 16 << 20
+
+
+def _auto_chunk_bases(L: int) -> Tuple[int, bool]:
+    """(ingest chunk bases, force_async) for a chromosome of length L.
+
+    Size-scaled default: ~8 chunks per chromosome, floor 1Mb, cap
+    DEFAULT_CHUNK_BASES. Small chromosomes get fine chunks AND an async
+    producer — the brief per-chunk inflate bursts then overlap compute
+    even on narrow hosts (measured on the 4Mb/30x bench: 5.2s -> 4.75s;
+    either change alone wins nothing). Large chromosomes keep bounded
+    chunk memory and the narrow-host sync-ingest crossover
+    (_sync_ingest). GROM_TPU_CHUNK_BASES overrides the size."""
+    env = os.environ.get("GROM_TPU_CHUNK_BASES", "")
+    if env.isdigit() and int(env) > 0:
+        return int(env), False
+    C = min(DEFAULT_CHUNK_BASES, max(1 << 20, L // 8))
+    return C, C <= (2 << 20) < L
+
+
+
+def _start_first_chunk_prefetch(cfg: GromConfig, header, info,
+                                out: Dict) -> None:
+    """Decode the first eligible chromosome's first chunk on a background
+    thread, concurrently with insert estimation — otherwise it is the first
+    serial step after it (both read the same cached BGZF source; reader and
+    pools are thread-safe). The streamed driver's fetch() consumes it via
+    the (refid, t0, t1) key; a miss just decodes normally."""
+    import threading
+    if _sync_ingest():
+        return                      # narrow host: no ingest worker threads
+    for refid, bam_name in enumerate(header.ref_names):
+        fa_name = fasta_mod.match_chromosome(bam_name, info.names)
+        if fa_name is None:
+            continue
+        if fasta_mod.is_chry(fa_name) and cfg.gender == 0:
+            continue
+        break
+    else:
+        return
+    L = int(header.ref_lengths[refid])
+    C, _ = _auto_chunk_bases(L)
+    t1 = min(C, L)
+    ev = threading.Event()
+    slot: Dict[str, object] = {}
+
+    def work():
+        try:
+            from grom_tpu_torch.utils.timing import phase
+            with phase("ingest.read_bam"):
+                slot["reads"] = bam_mod.read_bam_region(cfg.bam, refid, 0,
+                                                        t1)[1]
+        except Exception:
+            slot.pop("reads", None)
+        finally:
+            ev.set()
+
+    threading.Thread(target=work, daemon=True,
+                     name="grom-prefetch0").start()
+    out[(refid, 0, t1)] = (ev, slot)
+
+
+
+def _sync_ingest() -> bool:
+    """True = run ingest inline on the calling thread instead of producer
+    threads. On <=2-vCPU hosts the decode's own worker pthreads already
+    fill the machine; extra producer threads only add oversubscription,
+    which degraded-host schedulers punish hard (measured: the same fetch
+    3x slower on a worker thread than on the main thread). Override with
+    GROM_TPU_SYNC_INGEST=0/1."""
+    env = os.environ.get("GROM_TPU_SYNC_INGEST", "")
+    if env in ("0", "1"):
+        return env == "1"
+    return (os.cpu_count() or 1) <= 2
+
+
+
+def _streaming_insert_stats(cfg: GromConfig,
+                            header: "bam_mod.BamHeader") -> InsertStats:
+    """Insert estimation without decoding the whole BAM: chromosomes are
+    fetched in header order (== file order for a coordinate-sorted BAM) and
+    decoding stops once the reference's 10M-record sample is full
+    (src/GROM.c:1205-1318). Cached like load_or_estimate."""
+    import json
+
+    from grom_tpu_torch.ingest.bam import (FDUP, FMUNMAP, FPAIRED, FPROPER_PAIR,
+                                     FUNMAP)
+    from grom_tpu_torch.ingest.insert_size import (estimate_insert_stats,
+                                             estimate_insert_stats_streaming)
+    cache = cfg.bam + ".grom_tpu.mean.json"
+    if os.path.exists(cache):
+        try:
+            with open(cache) as f:
+                return InsertStats.from_json(f.read())
+        except (ValueError, KeyError):
+            pass
+    ref_cache = cfg.bam + ".mean"    # the reference binary's own cache
+    if os.path.exists(ref_cache):
+        try:
+            with open(ref_cache) as f:
+                v = f.read().split()
+            if len(v) == 5:
+                return InsertStats(int(v[0]), int(v[2]), int(v[3]),
+                                   int(v[1]), int(v[4]))
+        except (ValueError, OSError):
+            pass
+    st = estimate_insert_stats_streaming(cfg.bam, cfg)
+    if st is not None:
+        try:
+            with open(cache, "w") as f:
+                f.write(st.to_json())
+        except OSError:
+            pass
+        return st
+    keys = ("flag", "refid", "mrefid", "pos", "mpos", "tlen", "lseq", "mapq")
+    cols = {k: [] for k in keys}
+    contributing = 0
+    for refid in range(len(header.ref_names)):
+        _, r = bam_mod.read_bam_region(cfg.bam, refid, 0,
+                                       int(header.ref_lengths[refid]),
+                                       want_names=False, fields_only=True)
+        if not len(r.pos):
+            continue
+        for k in keys:
+            cols[k].append(getattr(r, k))
+        flag = r.flag
+        usable = ((flag & FUNMAP) == 0) & ((flag & FDUP) == 0)
+        unpaired = usable & ((flag & FPAIRED) == 0)
+        paired_ok = (usable & ((flag & FPAIRED) != 0)
+                     & ((flag & FMUNMAP) == 0) & (r.refid == r.mrefid)
+                     & (r.pos < r.mpos) & ((flag & FPROPER_PAIR) != 0)
+                     & (r.tlen > 0))
+        contributing += int((unpaired | paired_ok).sum())
+        if contributing >= cfg.insert_sample_size:
+            break
+
+    class _Lite:
+        pass
+
+    lite = _Lite()
+    for k in keys:
+        setattr(lite, k, np.concatenate(cols[k]) if cols[k]
+                else np.empty(0, np.int64))
+    st = estimate_insert_stats(lite, cfg)
+    try:
+        with open(cache, "w") as f:
+            f.write(st.to_json())
+    except OSError:
+        pass
+    return st
+
+
+
+def _ctx_path(out_vcf: str) -> str:
+    """"x.vcf" -> "x.ctx.vcf"; anything else appends ".ctx"
+    (src/GROM.c:20488-20504)."""
+    if out_vcf.endswith(".vcf"):
+        return out_vcf[:-4] + ".ctx.vcf"
+    return out_vcf + ".ctx"
+
+
+
+def _gather_ragged(data: np.ndarray, off: np.ndarray, sel: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Gather ragged rows data[off[i]:off[i+1]] for i in sel (vectorized)."""
+    lens = (off[sel + 1] - off[sel]).astype(np.int64)
+    out_off = np.zeros(len(sel) + 1, np.int64)
+    np.cumsum(lens, out=out_off[1:])
+    total = int(out_off[-1])
+    if total == 0:
+        return np.empty(0, data.dtype), out_off
+    # segment ids: +1 at each non-empty row start (rows may be empty)
+    starts = out_off[:-1][lens > 0]
+    marks = np.zeros(total + 1, np.int64)
+    np.add.at(marks, starts, 1)
+    seg = np.cumsum(marks[:total]) - 1
+    row = np.flatnonzero(lens > 0)[seg]
+    idx = off[sel[row]] + (np.arange(total, dtype=np.int64) - out_off[:-1][row])
+    return data[idx], out_off
+
+
+
+def _subset_reads(reads: bam_mod.RawReads, sel: np.ndarray) -> bam_mod.RawReads:
+    sel = np.asarray(sel, np.int64)
+    n = len(sel)
+    if n and sel[0] + n - 1 == sel[-1] and sel[-1] - sel[0] == n - 1:
+        # contiguous selection (the common case: coordinate-sorted BAM)
+        s0, s1 = int(sel[0]), int(sel[-1]) + 1
+        c0, c1 = int(reads.cigar_off[s0]), int(reads.cigar_off[s1])
+        q0, q1 = int(reads.seq_off[s0]), int(reads.seq_off[s1])
+        cigar = reads.cigar[c0:c1]
+        cigar_off = reads.cigar_off[s0:s1 + 1] - c0
+        seq = reads.seq[q0:q1]
+        qual = reads.qual[q0:q1]
+        seq_off = reads.seq_off[s0:s1 + 1] - q0
+        names = reads.names[s0:s1] if reads.names else []
+        sa_tags = reads.sa_tags[s0:s1] if reads.sa_tags else []
+    else:
+        cigar, cigar_off = _gather_ragged(reads.cigar, reads.cigar_off, sel)
+        seq, seq_off = _gather_ragged(reads.seq, reads.seq_off, sel)
+        qual, _ = _gather_ragged(reads.qual, reads.seq_off, sel)
+        names = [reads.names[i] for i in sel] if reads.names else []
+        sa_tags = [reads.sa_tags[i] for i in sel] if reads.sa_tags else []
+    return bam_mod.RawReads(
+        refid=reads.refid[sel], pos=reads.pos[sel], mapq=reads.mapq[sel],
+        flag=reads.flag[sel], mrefid=reads.mrefid[sel], mpos=reads.mpos[sel],
+        tlen=reads.tlen[sel], lseq=reads.lseq[sel],
+        cigar=cigar, cigar_off=cigar_off, seq=seq, qual=qual, seq_off=seq_off,
+        names=names, sa_tags=sa_tags,
+        name_id=reads.name_id[sel] if reads.name_id is not None else None,
+        name_len=reads.name_len[sel] if reads.name_len is not None else None,
+    )
+
+
+
+class _RdView:
+    """Duck-typed ChromArrays view for _accumulate_rd_lists (py fallback)."""
+
+    def __init__(self, rd_mq, rd_hi, rd_lo, L):
+        self.rd_mq = rd_mq
+        self.rd_hi = rd_hi
+        self.rd_lo = rd_lo
+        self.chr_len = L
+
+
+
+def _rd_only_arrays(L, rd_mq, rd_hi, rd_lo) -> scan_mod.ChromArrays:
+    z0 = np.zeros(0, np.int64)
+    z4 = np.zeros((4, 0), np.int64)
+    return scan_mod.ChromArrays(
+        chr_len=L, rd_mq=rd_mq, rd_hi=rd_hi, rd_lo=rd_lo,
+        one_base_rd=None, indel_sc_rd=None, sc_rd=None,
+        snv=z4, snv_lowmq=z4, bq=z0, bq_all=z0, mq=z0, mq_all=z0,
+        bq_read_count=z0, mq_read_count=z0, read_count_all=z0,
+        pos_in_read=z4, fstrand=z4)
+
+
+
 class _ChunkDetect:
     """Chunk-local detection pipeline for one chromosome: drained dense/
     evidence/tally windows go in (ascending, possibly partial ranges), the
@@ -339,8 +587,8 @@ class _ChunkDetect:
                  engine="host", device="cuda"):
         from collections import deque
 
-        from grom_tpu.call import indel as indel_mod
-        from grom_tpu.call import sv as sv_mod
+        from grom_tpu_torch.call import indel as indel_mod
+        from grom_tpu_torch.call import sv as sv_mod
         self.chrom = chrom
         self.cfg = cfg
         self.drv = drv
@@ -366,7 +614,7 @@ class _ChunkDetect:
         ``upper`` must not exceed the drained bound; during streaming it is
         last_read_pos - IM + 1 (positions at or below that are guaranteed
         <= the final scan_end, so eager detection is exact)."""
-        from grom_tpu.utils.timing import phase
+        from grom_tpu_torch.utils.timing import phase
         while self.windows and self.det_lo < upper:
             w = self.windows[0]
             lo = max(w["lo"], self.det_lo)
@@ -420,8 +668,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     lists); on the host engine through the native tally engine. Returns
     None when the deposit ring rejects the data (freak CIGARs) — the caller
     redoes the chromosome via the whole-batch path on the same engine."""
-    from grom_tpu.call.deposits import DepositsSession
-    from grom_tpu.utils.timing import phase
+    from grom_tpu_torch.call.deposits import DepositsSession
+    from grom_tpu_torch.utils.timing import phase
 
     if engine is None:
         engine = resolve_engine()
@@ -654,9 +902,9 @@ def _finish_chromosome(chrom, arr, cands, sv_det, ind_det, out_name,
     streamed paths. ``arr`` needs only the whole-chromosome rd_* depth
     lists. Returns (vcf_rows, ctx_records) in the reference's emission
     order."""
-    from grom_tpu.call import indel as indel_mod
-    from grom_tpu.call import sv as sv_mod
-    from grom_tpu.utils.timing import phase
+    from grom_tpu_torch.call import indel as indel_mod
+    from grom_tpu_torch.call import sv as sv_mod
+    from grom_tpu_torch.utils.timing import phase
 
     with phase("call.snv"):
         keep = snv_mod.flush_filter(cands, chrom, arr, cfg, drv, scan_start,
@@ -684,7 +932,7 @@ def _finish_chromosome(chrom, arr, cands, sv_det, ind_det, out_name,
     rows.extend(sv_mod.format_del_rows(out_name, del2, del_list, d_index,
                                        cfg, drv))
 
-    from grom_tpu.ingest.fasta import is_chrx
+    from grom_tpu_torch.ingest.fasta import is_chrx
     from grom_tpu_torch.call import cnv as cnv_mod
     gen1000: List[str] = []
     with phase("call.cnv"):
@@ -711,10 +959,10 @@ def call_chromosome(chrom: np.ndarray, reads: bam_mod.RawReads,
     """Whole-batch per-chromosome calling. Returns (vcf_rows, ctx_records)
     in the reference's emission order: SNV, DUP, INV, INS, INDEL_INS,
     INDEL_DEL, DEL (CNV rows are appended by the CNV engine)."""
-    from grom_tpu.call import indel as indel_mod
-    from grom_tpu.call import sv as sv_mod
-    from grom_tpu.call.deposits import run_deposits
-    from grom_tpu.utils.timing import phase
+    from grom_tpu_torch.call import indel as indel_mod
+    from grom_tpu_torch.call import sv as sv_mod
+    from grom_tpu_torch.call.deposits import run_deposits
+    from grom_tpu_torch.utils.timing import phase
 
     with phase("batch.build"):
         sub = _subset_reads(reads, sel)
@@ -769,7 +1017,7 @@ def call_chromosome(chrom: np.ndarray, reads: bam_mod.RawReads,
                                                   scan_end)
 
     # detection via the chunk API with one whole-chromosome window
-    from grom_tpu.call.evidence import EvidenceChunk
+    from grom_tpu_torch.call.evidence import EvidenceChunk
     L = len(chrom)
     ev_chunk = EvidenceChunk.from_state(ev)
     sv_det = sv_mod.SvDetector(L, cfg, drv, mq_table, hez_table)

@@ -9,8 +9,8 @@ per-base statistic is tile-local. Each tile goes through one kernel:
   the hand-written kernel in ``csrc/tile_accumulate.cu``, CPU tensors to
   ``tile_kernel_plain``, the same computation in plain torch.
 * ``TorchAccumulator.run`` has the signature and return contract of
-  grom_tpu's ``DeviceAccumulator.run``, so
-  ``grom_tpu.call.snv.candidates_from_device`` consumes its dict unchanged.
+  grom_tpu's ``DeviceAccumulator.run``, so the SNV caller
+  (``call/snv.py candidates_from_device``) consumes its dict unchanged.
 
 Tiles take runtime sizes: there are no padded buckets, no overflow ladder
 and no host fallback. The candidate outputs are sized by a count pass.

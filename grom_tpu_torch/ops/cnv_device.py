@@ -9,7 +9,8 @@ beside it — and both are held to the host engine's bits:
 * ``zscores``: the midrank z of every base, bitwise equal to the host and to
   grom_tpu's ``zscores_device`` under x64.
 * ``seed_eval``: first-fail offset, first-window score and grow-phase
-  totals of every (seed, outer class), accumulated sequentially in f64.
+  totals of every (seed, outer class), accumulated sequentially in f64,
+  returned packed in one int64 [5, NS] tensor (``unpack_outcomes``).
 * ``null_model``: per-length null window stdev, held to the host's
   ``call/cnv.py:_null_window_model`` (sequential per-segment prefixes and
   one owner per window length; no float atomics).
@@ -61,17 +62,47 @@ class CnvTables(NamedTuple):
 
 class SeedInputs(NamedTuple):
     """Per-base inputs of ``seed_eval`` over the whole chromosome [L]:
-    ``svals`` f64 (side-signed weighted z), ``lowa`` bool (low_acgt == 0),
-    ``sok0``/``sok1`` bool (per-class seed thresholds), ``gcls_idx`` int64
-    (last gated-definite position at or before p, -1 if none),
-    ``gcls_val`` int8 (its class); ``win_std`` f64 [maxw + 1]."""
+    ``svals`` f64 (side-signed weighted z) and ``flags`` uint8
+    (``pack_flags``); ``win_std`` f64 [maxw + 1]."""
     svals: torch.Tensor
-    lowa: torch.Tensor
-    sok0: torch.Tensor
-    sok1: torch.Tensor
-    gcls_idx: torch.Tensor
-    gcls_val: torch.Tensor
+    flags: torch.Tensor
     win_std: torch.Tensor
+
+
+# bits of SeedInputs.flags (csrc/cnv.cu reads the same)
+F_LOWA = 1      # low_acgt == 0 (gated)
+F_SOK0 = 2      # passes the class-0 seed threshold
+F_SOK1 = 4      # passes the class-1 seed threshold
+F_GCLS1 = 8     # the last gated-definite base at or before p is class 1
+F_GDEF = 16     # p itself is gated-definite
+
+
+def pack_flags(lowa, sok0, sok1, gcls_idx, gcls_val) -> np.ndarray:
+    """The per-base flag byte of the window walk from its numpy state:
+    ``lowa``/``sok0``/``sok1`` bool, ``gcls_idx`` int64 (last
+    gated-definite position at or before p, -1 if none; a running maximum,
+    so ``gcls_idx[p] >= seed`` holds exactly when a gated-definite base
+    lies in [seed, p]), ``gcls_val`` (its class)."""
+    u8 = np.uint8
+    return (lowa.astype(u8) * u8(F_LOWA) | sok0.astype(u8) * u8(F_SOK0)
+            | sok1.astype(u8) * u8(F_SOK1)
+            | (gcls_val == 1).astype(u8) * u8(F_GCLS1)
+            | (gcls_idx == np.arange(len(gcls_idx))).astype(u8)
+            * u8(F_GDEF))
+
+
+def pack_outcomes(f1, begin, c_end, c_sd, n) -> torch.Tensor:
+    """The five seed outcomes as one int64 [5, NS] tensor (c_sd by its
+    bits), so a launch's results come back in one copy."""
+    return torch.stack([f1, begin.to(torch.int64), c_end,
+                        c_sd.view(torch.int64), n])
+
+
+def unpack_outcomes(out: torch.Tensor):
+    """(f1 int64, begin bool, c_end int64, c_sd f64, n int64) of a packed
+    [5, NS] ``seed_eval`` result."""
+    return (out[0], out[1].to(torch.bool), out[2], out[3].view(torch.float64),
+            out[4])
 
 
 @functools.cache
@@ -82,7 +113,9 @@ def _lib() -> ctypes.CDLL:
     _build.bind(lib, "gt_zscores",
                 [P] * 11 + [Lg, Lg, I, I, I, D, I, P, P, P, P])
     _build.bind(lib, "gt_seed_eval",
-                [P] * 7 + [Lg, Lg, Lg, D, Lg, P, P, Lg] + [P] * 6)
+                [P] * 3 + [Lg, Lg, Lg, D, Lg, P, P, Lg, P, P, P])
+    lib.gt_seed_scratch_bytes.restype = Lg
+    lib.gt_seed_scratch_bytes.argtypes = [Lg]
     _build.bind(lib, "gt_null_prefix", [P] * 4 + [Lg, Lg] + [P] * 5)
     _build.bind(lib, "gt_null_accum", [P] * 6 + [Lg, Lg, Lg, P, P, P])
     return lib
@@ -252,7 +285,8 @@ _CHUNK = 256     # window offsets per step of the f64 pass
 def seed_eval_plain(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
                     max_low: float, be: int):
     """First-window + grow phases of every seed, in plain torch. Returns
-    (f1 int64, begin bool, c_end int64, c_sd f64, n int64), each [NS].
+    the packed (f1 int64, begin bool, c_end int64, c_sd f64, n int64), each
+    [NS] (``pack_outcomes``).
 
     The integer half needs no walk: ``2 * (gated bases before j) - j`` is a
     +-1 walk over the window, and the first fail is where it first reaches
@@ -273,8 +307,8 @@ def seed_eval_plain(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
     f1 = n.clone()
     zero = torch.zeros(NS, dtype=i64, device=dev)
     if NS == 0:
-        return (f1, torch.zeros(0, dtype=torch.bool, device=dev), zero,
-                torch.zeros(0, dtype=f64, device=dev), n)
+        return pack_outcomes(f1, torch.zeros(0, dtype=torch.bool, device=dev),
+                             zero, torch.zeros(0, dtype=f64, device=dev), n)
 
     # ---- the positions every window reaches, with "no data" (as grom_tpu
     # pads them) past the chromosome end and one chunk past the last window
@@ -291,15 +325,23 @@ def seed_eval_plain(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
         return torch.cat([torch.zeros(1, dtype=i64, device=dev),
                           torch.cumsum(x.to(i64), 0)])
 
-    lw = span(si.lowa, False)
-    inc = torch.stack([lw & span(si.sok0, False), lw & span(si.sok1, False)])
-    incg = torch.where(span(si.gcls_val, 0) == 0, inc[0], inc[1])
+    fl = span(si.flags, 0)
+    bit = lambda f: (fl & f) != 0
+    lw = bit(F_LOWA)
+    inc = torch.stack([lw & bit(F_SOK0), lw & bit(F_SOK1)])
+    incg = torch.where(bit(F_GCLS1), inc[1], inc[0])
     sv = span(si.svals, 0.0)
     zl = torch.where(lw, sv, 0.0)
     b = seeds - lo
     # windows read the outer class up to the first gated-definite base at
-    # or after the seed (gcls_idx is a running maximum), the global after
-    g = torch.searchsorted(si.gcls_idx[lo:top].contiguous(), seeds)
+    # or after the seed, the global class from there
+    gd = torch.nonzero(bit(F_GDEF)[:top - lo]).squeeze(1)
+    if gd.numel():
+        k = torch.searchsorted(gd, b)
+        g = torch.where(k < gd.numel(), gd[k.clamp(max=gd.numel() - 1)],
+                        top - lo)
+    else:
+        g = torch.full_like(b, top - lo)
 
     # ---- first fail: the +-1 walk first reaching -1 --------------------
     Pg = prefix(2 * incg.to(i64) - 1)
@@ -403,43 +445,39 @@ def seed_eval_plain(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
     begin = begin0 | any_good
     c_end = torch.where(any_good, seeds + lastg,
                         torch.where(begin0, seeds + minw, 0))
-    return f1, begin, c_end, c_sd, n
+    return pack_outcomes(f1, begin, c_end, c_sd, n)
 
 
 def _seed_eval_cuda(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
                     max_low: float, be: int):
     dev = seeds.device
-    for name, dt in (("svals", torch.float64), ("lowa", torch.bool),
-                     ("sok0", torch.bool), ("sok1", torch.bool),
-                     ("gcls_idx", torch.int64), ("gcls_val", torch.int8),
+    for name, dt in (("svals", torch.float64), ("flags", torch.uint8),
                      ("win_std", torch.float64)):
         _require(name, getattr(si, name), dt, dev)
     _require("seeds", seeds, torch.int64, dev)
     _require("seed_cls", seed_cls, torch.int8, dev)
+    if si.flags.shape != si.svals.shape:
+        raise ValueError("flags and svals must cover the same positions")
     if si.win_std.shape[0] != maxw + 1:
         raise ValueError("win_std must hold maxw + 1 entries")
     lib = _lib()
     NS = int(seeds.shape[0])
-    f1 = torch.empty(NS, dtype=torch.int64, device=dev)
-    begin = torch.empty(NS, dtype=torch.bool, device=dev)
-    c_end = torch.empty(NS, dtype=torch.int64, device=dev)
-    c_sd = torch.empty(NS, dtype=torch.float64, device=dev)
-    n = torch.empty(NS, dtype=torch.int64, device=dev)
+    out = torch.empty((5, NS), dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.gt_seed_scratch_bytes(NS), dtype=torch.uint8,
+                          device=dev)
     _build.check(lib, lib.gt_seed_eval(
-        si.svals.data_ptr(), si.lowa.data_ptr(), si.sok0.data_ptr(),
-        si.sok1.data_ptr(), si.gcls_idx.data_ptr(), si.gcls_val.data_ptr(),
-        si.win_std.data_ptr(), int(si.svals.shape[0]), minw, maxw,
-        float(max_low), be, seeds.data_ptr(), seed_cls.data_ptr(), NS,
-        f1.data_ptr(), begin.data_ptr(), c_end.data_ptr(), c_sd.data_ptr(),
-        n.data_ptr(), _build.stream_ptr(dev)), "seed_eval")
+        si.svals.data_ptr(), si.flags.data_ptr(), si.win_std.data_ptr(),
+        int(si.svals.shape[0]), minw, maxw, float(max_low), be,
+        seeds.data_ptr(), seed_cls.data_ptr(), NS, scratch.data_ptr(),
+        out.data_ptr(), _build.stream_ptr(dev)), "seed_eval")
     _build.LAUNCHES["seed_eval"] += 1
-    return f1, begin, c_end, c_sd, n
+    return out
 
 
 def seed_eval(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
               max_low: float, be: int):
-    """Every seed's window outcome (see ``seed_eval_plain``): the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    """Every seed's window outcome, packed (see ``seed_eval_plain``): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if _dispatch(seeds, "seed_eval") == "cuda":
         with torch.cuda.device(seeds.device):
             return _seed_eval_cuda(si, seeds, seed_cls, minw, maxw, max_low,
@@ -449,8 +487,9 @@ def seed_eval(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
 
 def seed_inputs(depth, mq, gc, low_acgt, stdev_list, thr, win_std, cfg,
                 L: int, side: int, device):
-    """Host-side per-base state of the window scan (numpy) and its device
-    copy. Returns (defc, gcls_idx, sok0, sok1, svals, lowa, SeedInputs)."""
+    """Host-side per-base state of the window scan (numpy) and the kernel's
+    inputs on ``device``. Returns (defc, gcls_idx, sok0, sok1, svals, lowa,
+    SeedInputs)."""
     defc = np.where(mq >= cfg.min_mapq, np.int8(0),
                     np.where(depth > 0, np.int8(1), np.int8(-1)))
     idx = np.arange(L, dtype=np.int64)
@@ -467,10 +506,9 @@ def seed_inputs(depth, mq, gc, low_acgt, stdev_list, thr, win_std, cfg,
     svals = side * stdev_list
     to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(
         device)
-    si = SeedInputs(svals=to(svals, np.float64), lowa=to(lowa, np.bool_),
-                    sok0=to(sok0, np.bool_), sok1=to(sok1, np.bool_),
-                    gcls_idx=to(gcls_idx, np.int64),
-                    gcls_val=to(gcls_val, np.int8),
+    si = SeedInputs(svals=to(svals, np.float64),
+                    flags=to(pack_flags(lowa, sok0, sok1, gcls_idx,
+                                        gcls_val), np.uint8),
                     win_std=to(win_std, np.float64))
     return defc, gcls_idx, sok0, sok1, svals, lowa, si
 
@@ -490,8 +528,8 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
     the host outer walk consumes the outcomes in the reference's order
     (jump/suppression after each emitted call), keeping the rare
     slide/trim phases sequential."""
-    from grom_tpu.call.cnv import CnvCall, _slide_phase, _trim_phase
-    from grom_tpu.utils.timing import phase
+    from grom_tpu_torch.call.cnv import CnvCall, _slide_phase, _trim_phase
+    from grom_tpu_torch.utils.timing import phase
 
     minw = cfg.min_rd_window_len
     maxw = cfg.max_rd_window_len
@@ -520,8 +558,9 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
                 seeds = torch.from_numpy(cand[i0:i1]).to(device)
                 cls_t = torch.full((i1 - i0,), cls, dtype=torch.int8,
                                    device=device)
-                r = [x.cpu().numpy() for x in seed_eval(
-                    si, seeds, cls_t, minw, maxw, max_low, be)]
+                # one copy back per launch
+                r = [x.numpy() for x in unpack_outcomes(seed_eval(
+                    si, seeds, cls_t, minw, maxw, max_low, be).cpu())]
             return i0, i1, r
 
         # host outer walk (reference order; src/GROM.c:19358-19380)

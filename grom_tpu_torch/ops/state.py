@@ -1,7 +1,7 @@
-"""grom_tpu's numpy state as the port's device tensors.
+"""The host engine's numpy state as the port's device tensors.
 
-The tests (and ``chip_smoke.py``) feed grom_tpu's JAX functions and the
-port's kernels the same values through these converters:
+The port's stages and its tests (which also feed grom_tpu's JAX functions
+the same values) go through these converters:
 
 * ``tile_from_args``: a tile's padded argument tuple, as
   ``__graft_entry__.tile_args_from_fixture`` builds it for
@@ -101,7 +101,7 @@ def cell_deltas(d_pos: np.ndarray, d_mq: np.ndarray, d_hi: np.ndarray,
 def sv_tables(mq_tab: np.ndarray, hez_tab: np.ndarray, device) -> SvTables:
     """The scorer's tables on ``device``: the f64 binomial tables and
     sv_screen's etype -> kind / reverse-side index tables, as they are."""
-    from grom_tpu.call.sv_screen import _ETYPE_KIND, _ETYPE_REV
+    from grom_tpu_torch.call.sv_screen import _ETYPE_KIND, _ETYPE_REV
     if mq_tab.shape != hez_tab.shape or mq_tab.ndim != 2:
         raise ValueError("the mq and hez tables must be 2-D of one shape")
     return SvTables(mq=to_device(mq_tab, np.float64, device),

@@ -7,7 +7,7 @@ kind, the min-disc and insert-geometry gates, the binomial-table gather
 and the hez gather. It dispatches on the device of its inputs: CUDA
 tensors go to the kernel in ``csrc/sv_score.cu``, CPU tensors to
 ``score_sv_entries_plain``. Both equal numpy's
-``grom_tpu.call.sv_screen.score_sv_entries`` bit for bit in every output
+``call/sv_screen.py score_sv_entries`` bit for bit in every output
 and dtype: the H100 has native f64, so the tables stay f64.
 
 ``SvScorer`` is a callable for the ``scorer=`` seam of
@@ -27,8 +27,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from grom_tpu.call.deposits import E_CTX_R
-from grom_tpu.call.sv_screen import _ETYPE_KIND
+from grom_tpu_torch.call.deposits import E_CTX_R
+from grom_tpu_torch.call.sv_screen import _ETYPE_KIND
 from grom_tpu_torch import _build
 
 ENTRY_KEYS = ("pos", "etype", "count", "rs", "re", "rd", "weak_f", "weak_r",

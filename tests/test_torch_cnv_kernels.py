@@ -49,16 +49,41 @@ def _bits(a):
     return a.view(np.uint64)
 
 
+def _unpacked(si):
+    """grom_tpu's per-base seed inputs (numpy) from the port's packed
+    ones: svals, lowa, sok0, sok1, gcls_idx, gcls_val, win_std."""
+    fl = si.flags.numpy()
+    bit = lambda f: (fl & f) != 0
+    idx = np.arange(len(fl), dtype=np.int64)
+    gcls_idx = np.maximum.accumulate(np.where(bit(cnv_device.F_GDEF), idx,
+                                              -1))
+    return (si.svals.numpy(), bit(cnv_device.F_LOWA),
+            bit(cnv_device.F_SOK0), bit(cnv_device.F_SOK1), gcls_idx,
+            bit(cnv_device.F_GCLS1).astype(np.int8), si.win_std.numpy())
+
+
+def _seed_outcomes(out):
+    return [x.numpy() for x in cnv_device.unpack_outcomes(out)]
+
+
+def _same_outcomes(got, want):
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == np.float64:
+            assert np.array_equal(_bits(g), _bits(w)), k
+        else:
+            assert np.array_equal(g, np.asarray(w)), k
+
+
 def _cnv_inputs(fixture):
     """(chrom, host per-base arrays with the rd lists, cfg, drv) of a
-    fixture's first contig, from grom_tpu's host engine."""
-    from grom_tpu.call import scan as scan_mod
-    from grom_tpu.config import DerivedConfig, GromConfig
-    from grom_tpu.driver import _subset_reads
-    from grom_tpu.ingest import bam as bam_mod
-    from grom_tpu.ingest import fasta as fasta_mod
-    from grom_tpu.ingest.batches import build_batch
-    from grom_tpu.ingest.insert_size import load_or_estimate
+    fixture's first contig, from the port's host engine."""
+    from grom_tpu_torch.call import scan as scan_mod
+    from grom_tpu_torch.config import DerivedConfig, GromConfig
+    from grom_tpu_torch.driver import _subset_reads
+    from grom_tpu_torch.ingest import bam as bam_mod
+    from grom_tpu_torch.ingest import fasta as fasta_mod
+    from grom_tpu_torch.ingest.batches import build_batch
+    from grom_tpu_torch.ingest.insert_size import load_or_estimate
     d = os.path.join(DATA, fixture)
     cfg = GromConfig(bam=os.path.join(d, "ds.bam"),
                      ref_fasta=os.path.join(d, "ds.fa"), out_vcf="unused.vcf")
@@ -80,7 +105,6 @@ def _cnv_inputs(fixture):
 def stage():
     """Kernel inputs of the port's CNV stage on cnvrich (CPU run), with
     the calls it emitted."""
-    from grom_tpu.call import cnv as cnv_ref
     from grom_tpu_torch.call import cnv as tcnv
 
     chrom, arr, cfg, drv = _cnv_inputs("cnvrich")
@@ -112,13 +136,14 @@ def stage():
     for k in rec:
         setattr(cnv_device, k, recorder(k))
     try:
-        feats = cnv_ref.preprocess_reference(chrom, drv.insert_mean,
-                                             cfg.min_repeat)
+        feats = tcnv.preprocess_reference(chrom, drv.insert_mean,
+                                          cfg.min_repeat)
         depth = np.add(arr.rd_hi, arr.rd_lo, dtype=np.int32)
-        prep = cnv_ref.prep_cnv(chrom, feats, arr.rd_hi, arr.rd_lo,
-                                arr.rd_mq, cfg, drv, depth=depth)
-        dels, dups = tcnv.detect_del_dup(chrom, feats, prep, cfg, drv,
-                                         cfg.ploidy, depth, "cpu")
+        prep = tcnv.prep_cnv(chrom, feats, arr.rd_hi, arr.rd_lo, arr.rd_mq,
+                             cfg, drv, depth=depth)
+        dels, dups = tcnv.detect_del_dup(chrom, feats, prep, None, None, cfg,
+                                         drv, cfg.ploidy, depth=depth,
+                                         engine="torch", device="cpu")
     finally:
         for k, v in orig.items():
             setattr(cnv_device, k, v)
@@ -166,7 +191,7 @@ def test_seed_eval_matches_jax(stage, side):
     mine = [c for c in calls if c[0][0] is sis[side]]
     si, _, _, minw, maxw, max_low, be = mine[0][0]
     seeds = torch.cat([c[0][1] for c in mine])
-    f1 = torch.cat([c[2][0] for c in mine]).numpy()
+    f1 = torch.cat([c[2][0] for c in mine]).numpy()   # row 0 of the packing
     rng = np.random.default_rng(3 + side)
     long_ = np.flatnonzero(f1 > 512)
     long_ = rng.choice(long_, size=min(64, len(long_)), replace=False)
@@ -176,19 +201,12 @@ def test_seed_eval_matches_jax(stage, side):
     sd = torch.cat([pick, pick])
     cl = torch.cat([torch.zeros(len(pick), dtype=torch.int8),
                     torch.ones(len(pick), dtype=torch.int8)])
-    got = [x.numpy() for x in cnv_device.seed_eval(si, sd, cl, minw, maxw,
-                                                   max_low, be)]
+    got = _seed_outcomes(cnv_device.seed_eval(si, sd, cl, minw, maxw,
+                                              max_low, be))
     with _x64():
-        want = seed_eval_device(
-            si.svals.numpy(), si.lowa.numpy(), si.sok0.numpy(),
-            si.sok1.numpy(), si.gcls_idx.numpy(), si.gcls_val.numpy(),
-            si.win_std.numpy(), sd.numpy(), cl.numpy(), minw, maxw, max_low,
-            be, width=maxw)
-    for k, (g, w) in enumerate(zip(got, want)):
-        if g.dtype == np.float64:
-            assert np.array_equal(_bits(g), _bits(w)), k
-        else:
-            assert np.array_equal(g, np.asarray(w)), k
+        want = seed_eval_device(*_unpacked(si), sd.numpy(), cl.numpy(),
+                                minw, maxw, max_low, be, width=maxw)
+    _same_outcomes(got, want)
     assert got[1].any() and (got[0] == maxw).any()
 
 
@@ -220,8 +238,11 @@ def _synthetic_seed_inputs(seed, L=24_000, minw=100, maxw=2000):
     cand = np.flatnonzero((sok0 | sok1)[:be])
     seeds = np.sort(rng.choice(cand, 2500, replace=False))
     seed_cls = rng.integers(0, 2, len(seeds)).astype(np.int8)
-    si = cnv_device.SeedInputs(*(torch.from_numpy(a) for a in (
-        svals, lowa, sok0, sok1, gcls_idx, gcls_val, win_std)))
+    si = cnv_device.SeedInputs(
+        torch.from_numpy(svals),
+        torch.from_numpy(cnv_device.pack_flags(lowa, sok0, sok1, gcls_idx,
+                                               gcls_val)),
+        torch.from_numpy(win_std))
     return (si, torch.from_numpy(seeds), torch.from_numpy(seed_cls), minw,
             maxw, 2.0, be)
 
@@ -230,21 +251,80 @@ def _synthetic_seed_inputs(seed, L=24_000, minw=100, maxw=2000):
 def test_seed_eval_synthetic_matches_jax(seed):
     from grom_tpu.ops.cnv_device import seed_eval_device
     si, seeds, cls, minw, maxw, max_low, be = _synthetic_seed_inputs(seed)
-    got = [x.numpy() for x in cnv_device.seed_eval(si, seeds, cls, minw,
-                                                   maxw, max_low, be)]
+    got = _seed_outcomes(cnv_device.seed_eval(si, seeds, cls, minw, maxw,
+                                              max_low, be))
     with _x64():
-        want = seed_eval_device(
-            *(x.numpy() for x in si), seeds.numpy(), cls.numpy(), minw,
-            maxw, max_low, be, width=maxw)
-    for k, (g, w) in enumerate(zip(got, want)):
-        if g.dtype == np.float64:
-            assert np.array_equal(_bits(g), _bits(w)), k
-        else:
-            assert np.array_equal(g, np.asarray(w)), k
+        want = seed_eval_device(*_unpacked(si), seeds.numpy(), cls.numpy(),
+                                minw, maxw, max_low, be, width=maxw)
+    _same_outcomes(got, want)
     f1, begin, n = got[0], got[1], got[4]
     # the branches really ran: calls begun, windows that never failed,
     # seeds that failed inside the first window
     assert begin.sum() > 20 and (f1 == n).sum() > 20 and (f1 < minw).any()
+
+
+def _tier_seed_inputs(maxw=10_000, minw=100):
+    """Seed windows at the edges of the kernel's two tiers (tier 1 walks
+    the first window, minw = 100 offsets rounded up to 128; tier 2 then 32
+    offsets a step): a run of included bases followed by a run of excluded
+    ones fails the +-1 walk at twice the run's length from the seed, so
+    seeds 63-65 bases before the run's end fail at offsets 126-130 and
+    seeds 257-261 before it at 508-516; seeds deep in a 12 kb run walk all
+    of maxw with a long grow phase (scores past 3 throughout); near the
+    scan end ``be`` clips the windows to 127-129, 300 and 511-513 offsets,
+    and the shortest windows reach past the chromosome end."""
+    rng = np.random.default_rng(11)
+    L = 40_000
+    be = L - 50
+    lowa = np.ones(L, bool)
+    ok = np.zeros(L, bool)
+    ok[2_000:3_000] = True                     # f1 = 2 x (3000 - seed)
+    ok[5_000:17_000] = True                    # the long run
+    ok[be - 700:] = True                       # clipped windows
+    lowa[rng.choice(L, 300, replace=False)] = False
+    defc = np.where(rng.random(L) < 0.8, 0, 1).astype(np.int8)
+    defc[rng.choice(L, 200, replace=False)] = -1
+    idx = np.arange(L)
+    gcls_idx = np.maximum.accumulate(np.where(lowa & (defc >= 0), idx, -1))
+    gcls_val = defc[np.maximum(gcls_idx, 0)]
+    svals = np.where(ok, rng.normal(3.0, 1.0, L), rng.normal(0.0, 1.0, L))
+    win_std = np.zeros(maxw + 1)
+    win_std[minw:] = 1.5 / np.sqrt(np.arange(minw, maxw + 1) / minw)
+    seeds = np.array([3_000 - k for k in (63, 64, 65, 150, 257, 258, 259,
+                                          260, 261, 400)]
+                     + [5_000, 5_001, 6_000, 6_017]
+                     + [be - k for k in (513, 512, 511, 300, 129, 128, 127,
+                                         60, 10)], np.int64)
+    seeds = np.concatenate([seeds, seeds])
+    cls = np.repeat(np.array([0, 1], np.int8), len(seeds) // 2)
+    si = cnv_device.SeedInputs(
+        torch.from_numpy(svals),
+        torch.from_numpy(cnv_device.pack_flags(lowa, ok, ok, gcls_idx,
+                                               gcls_val)),
+        torch.from_numpy(win_std))
+    return (si, torch.from_numpy(seeds), torch.from_numpy(cls), minw, maxw,
+            0.05, be)
+
+
+def test_seed_eval_tiers_match_jax():
+    """The plain version against grom_tpu's seed_eval_device under x64 on
+    windows at the edges of the two tiers."""
+    from grom_tpu.ops.cnv_device import seed_eval_device
+    si, seeds, cls, minw, maxw, max_low, be = _tier_seed_inputs()
+    got = _seed_outcomes(cnv_device.seed_eval(si, seeds, cls, minw, maxw,
+                                              max_low, be))
+    with _x64():
+        want = seed_eval_device(*_unpacked(si), seeds.numpy(), cls.numpy(),
+                                minw, maxw, max_low, be, width=maxw)
+    _same_outcomes(got, want)
+    f1, begin, c_end, _, n = got
+    # fails on both sides of the tier edge, the full window, the clips
+    assert {126, 128, 130, 508, 510, 512, 514, 516} <= set(f1.tolist())
+    full = (f1 == maxw) & (n == maxw)
+    assert full.sum() >= 4 and begin[full].all()
+    assert (c_end[full] - seeds.numpy()[full] > 9_000).all()
+    assert {127, 128, 129, 300, 511, 512, 513} <= set(n[f1 == n].tolist())
+    assert (seeds.numpy() + n > be + 40).any()
 
 
 @pytest.mark.parametrize("field", ["cnvrich_z", "normal"])
@@ -318,7 +398,8 @@ def test_cnv_kernels_cuda_match_plain(stage):
     assert np.array_equal(_bits(got), _bits(want))
     calls = stage.rec["seed_eval"]
     longest = max(calls, key=lambda c: int(c[2][0].sum()))
-    for a, _, want in calls[:4] + [longest]:
+    tiers = (_tier_seed_inputs(), None,
+             cnv_device.seed_eval(*_tier_seed_inputs()))
+    for a, _, want in calls[:4] + [longest, tiers]:
         got = cnv_device.seed_eval(*(cu(x) for x in a))
-        for g, w in zip(got, want):
-            assert torch.equal(g.cpu(), w)
+        assert torch.equal(got.cpu(), want)

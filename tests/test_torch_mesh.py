@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from grom_tpu.config import GromConfig
+from grom_tpu_torch.config import GromConfig
 from grom_tpu_torch.parallel.mesh import make_mesh
 from grom_tpu_torch.parallel.pipeline import MeshAccumulator
 from test_torch_rd_depth import synthetic_batch
-from test_torch_slice import DATA, DATE, _cfg, _read
+from test_torch_slice import DATA, DATE, HostConfig, _cfg, _read
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and torch's default of one thread per core would oversubscribe the host
@@ -28,7 +28,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def ds200k():
-    from grom_tpu.testing.fixtures import chrom_inputs
+    from grom_tpu_torch.testing.fixtures import chrom_inputs
     return chrom_inputs(os.path.join(DATA, "ds200k"))
 
 
@@ -162,7 +162,8 @@ def _host_and_mesh(tmp_path, fixture, kw, mesh=None):
     from grom_tpu_torch.driver import run
     host = str(tmp_path / "host.vcf")
     port = str(tmp_path / "mesh.vcf")
-    run_host(_cfg(fixture, host, **kw), file_date=DATE, engine="host")
+    run_host(_cfg(fixture, host, HostConfig, **kw), file_date=DATE,
+             engine="host")
     run(_cfg(fixture, port, **kw), file_date=DATE, engine="mesh",
         device="cpu", mesh=mesh)
     assert _read(port) == _read(host)
@@ -227,7 +228,7 @@ def test_mesh_engine_matches_grom_tpu_mesh(tmp_path, monkeypatch):
     monkeypatch.setenv("GROM_TPU_STRICT", "1")
     ref = str(tmp_path / "jax.vcf")
     port = str(tmp_path / "port.vcf")
-    run_jax(_cfg("ds200k", ref), file_date=DATE, engine="mesh",
+    run_jax(_cfg("ds200k", ref, HostConfig), file_date=DATE, engine="mesh",
             mesh=jax_mesh(2, 2, devices=jax.devices("cpu")))
     run(_cfg("ds200k", port), file_date=DATE, engine="mesh", device="cpu",
         mesh=make_mesh(2, 2, devices=["cpu"] * 4))

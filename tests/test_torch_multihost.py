@@ -59,7 +59,7 @@ def _worker(rank: int, world: int, port: str) -> None:
                             world_size=world, rank=rank)
     try:
         from grom_tpu.call import scan as scan_mod
-        from grom_tpu.testing.fixtures import chrom_inputs
+        from grom_tpu_torch.testing.fixtures import chrom_inputs
         from grom_tpu_torch.parallel.mesh import make_mesh
         from grom_tpu_torch.parallel.pipeline import (HIST_BINS,
                                                       MeshAccumulator)

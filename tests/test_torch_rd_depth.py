@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from grom_tpu.call import scan as scan_mod
-from grom_tpu.config import GromConfig
+from grom_tpu_torch.config import GromConfig
 from grom_tpu_torch.ops import rd_depth
 from grom_tpu_torch.ops.state import cell_deltas
 from grom_tpu_torch.parallel.pipeline import endpoint_deltas
@@ -88,7 +88,7 @@ def _check(chrom, batch, eligible, cfg, gate, seg_l):
 def test_rd_kernels_match_jax_mesh_ds200k():
     """ds200k in 2^14-base cells on a 2x2 mesh: 13 cells, so four launches
     and a short last one."""
-    from grom_tpu.testing.fixtures import chrom_inputs
+    from grom_tpu_torch.testing.fixtures import chrom_inputs
     ci = chrom_inputs(os.path.join(DATA, "ds200k"))
     rd = _check(ci.chrom, ci.batch, ci.eligible, ci.cfg, ci.gate, 1 << 14)
     assert rd[1].max() > 10 and rd[2].max() > 0

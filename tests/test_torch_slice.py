@@ -6,8 +6,8 @@ host engine, and rows equal to the committed reference-binary oracles.
 Chunk edges are forced (GROM_TPU_CHUNK_BASES=60000,
 GROM_TPU_DETECT_BASES=30000) so the streamed path crosses many ingest and
 detect boundaries. Also here: the CLI (``-P`` refusal), the engine seam,
-and that no run imports jax. The whole-batch path and ``-c`` are in
-test_torch_whole_batch.py."""
+and that no run imports jax or grom_tpu. The whole-batch path and ``-c``
+are in test_torch_whole_batch.py."""
 
 import os
 import subprocess
@@ -16,7 +16,8 @@ import sys
 import pytest
 import torch
 
-from grom_tpu.config import GromConfig
+from grom_tpu.config import GromConfig as HostConfig
+from grom_tpu_torch.config import GromConfig
 from test_full_parity import _rows, _rows_equal
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -28,10 +29,12 @@ DATE = "2026725"
 torch.set_num_threads(1)
 
 
-def _cfg(fixture, out, **kw):
+def _cfg(fixture, out, cls=GromConfig, **kw):
+    """The port's config of a fixture run (``cls=HostConfig``: grom_tpu's,
+    for a run of grom_tpu)."""
     d = os.path.join(DATA, fixture)
-    return GromConfig(bam=os.path.join(d, "ds.bam"),
-                      ref_fasta=os.path.join(d, "ds.fa"), out_vcf=out, **kw)
+    return cls(bam=os.path.join(d, "ds.bam"),
+               ref_fasta=os.path.join(d, "ds.fa"), out_vcf=out, **kw)
 
 
 def _read(path):
@@ -54,7 +57,8 @@ def test_torch_engine_matches_host(tmp_path, chunked, fixture, kw):
     from grom_tpu_torch.driver import run
     host = str(tmp_path / "host.vcf")
     port = str(tmp_path / "torch.vcf")
-    run_host(_cfg(fixture, host, **kw), file_date=DATE, engine="host")
+    run_host(_cfg(fixture, host, HostConfig, **kw), file_date=DATE,
+             engine="host")
     res = run(_cfg(fixture, port, **kw), file_date=DATE, engine="torch",
               device="cpu")
     assert res.ctx_path == str(tmp_path / "torch.ctx.vcf")
@@ -82,7 +86,8 @@ def test_torch_engine_output_modes(tmp_path, kw, extra):
     from grom_tpu_torch.driver import run
     host = str(tmp_path / "host.out")
     port = str(tmp_path / "torch.out")
-    run_host(_cfg("ds200k", host, **kw), file_date=DATE, engine="host")
+    run_host(_cfg("ds200k", host, HostConfig, **kw), file_date=DATE,
+             engine="host")
     run(_cfg("ds200k", port, **kw), file_date=DATE, engine="torch",
         device="cpu")
     names = sorted(os.listdir(tmp_path))
@@ -140,10 +145,10 @@ def test_resolve_engine(monkeypatch, capsys):
     with pytest.raises(ValueError):
         resolve_engine()
     monkeypatch.setenv("GROM_TPU_TORCH_ENGINE", "auto")
-    # auto: mesh with more than one card, torch with one, host with none
-    for avail, count, want in ((False, 0, "host"), (True, 1, "torch"),
-                               (True, 2, "mesh"), (True, 8, "mesh")):
-        monkeypatch.setattr(torch.cuda, "is_available", lambda a=avail: a)
+    # auto: mesh with more than one card, torch with one (none: see
+    # test_torch_standalone.py)
+    for count, want in ((1, "torch"), (2, "mesh"), (8, "mesh")):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda c=count: c)
         assert resolve_engine() == want
         assert "engine auto -> %s" % want in capsys.readouterr().err
@@ -168,37 +173,46 @@ def test_cli_parallel_not_ported(tmp_path):
     assert not os.path.exists(tmp_path / "o.vcf")
 
 
+def _foreign(mods):
+    """The modules of jax and of grom_tpu among ``mods``."""
+    return [m for m in mods if m.split(".")[0] in ("jax", "grom_tpu")]
+
+
 def test_cli_never_imports_jax(tmp_path):
-    """``python -m grom_tpu_torch`` on ds200k (auto engine: host here, no
-    card) matches the oracle, and the import log shows no jax module."""
+    """``python -m grom_tpu_torch`` on ds200k on the host engine matches
+    the oracle, and the import log shows no module of jax or grom_tpu."""
     d = os.path.join(DATA, "ds200k")
     out = str(tmp_path / "o.vcf")
     r = _cli(["-X", "importtime", "-m", "grom_tpu_torch",
               "-i", os.path.join(d, "ds.bam"), "-r", os.path.join(d, "ds.fa"),
-              "-o", out], {"GROM_TPU_TORCH_ENGINE": "auto"})
+              "-o", out], {"GROM_TPU_TORCH_ENGINE": "host"})
     assert r.returncode == 0, r.stderr[-3000:]
     mods = [ln.rsplit("|", 1)[-1].strip() for ln in r.stderr.splitlines()
             if ln.startswith("import time:")]
     assert "grom_tpu_torch.driver" in mods and "torch" in mods
-    assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
+    assert "grom_tpu_torch.native" in mods
+    assert not _foreign(mods)
     assert _rows(out) == _rows(os.path.join(d, "oracle.vcf"))
 
 
 @pytest.mark.parametrize("engine", ["torch", "mesh"])
 def test_torch_engine_never_imports_jax(tmp_path, engine):
     """A full in-process run of a device engine (plain kernels, the SV
-    scorer on) leaves ``jax`` out of sys.modules."""
+    scorer on) leaves every module of jax and of grom_tpu out of
+    sys.modules."""
     d = os.path.join(DATA, "ds200k")
     out = str(tmp_path / "o.vcf")
     code = (
         "import sys\n"
-        "from grom_tpu.config import GromConfig\n"
+        "from grom_tpu_torch.config import GromConfig\n"
         "from grom_tpu_torch.driver import run\n"
         "from grom_tpu_torch.ops import sv_device\n"
         "run(GromConfig(bam=%r, ref_fasta=%r, out_vcf=%r), engine=%r,"
         " device='cpu')\n"
         "assert sv_device._CACHE, 'the SV scorer was not used'\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'grom_tpu')]\n"
+        "assert not bad, bad\n"
         % (os.path.join(d, "ds.bam"), os.path.join(d, "ds.fa"), out, engine))
     r = _cli(["-c", code], {"GROM_TPU_DEVICE_SV": ""})
     assert r.returncode == 0, r.stderr[-3000:]

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from grom_tpu.call.sv_screen import score_sv_entries
-from grom_tpu.config import DerivedConfig, GromConfig
+from grom_tpu_torch.config import DerivedConfig, GromConfig
 from grom_tpu_torch.ops import sv_device
 from grom_tpu_torch.ops.state import sv_entries, sv_tables
 
