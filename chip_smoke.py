@@ -20,17 +20,22 @@ non-zero without its result line:
    launches and chunks on the card;
 5. real size: one 24 Mb chromosome at 30x (grom_tpu_torch.testing.bulk_sim,
    seed 5), host engine then torch engine, VCF and .ctx.vcf byte-identical;
-   the launch counts of the torch run, the card time of its seed_eval
-   launches (torch.profiler, and CUDA events around each launch) and the
-   card's busy time over the run; then every kernel of that path against
-   its plain version, bitwise and timed beside it on the card, on the
-   largest inputs that run handed it (a full 2^18-base tile for the tile
-   kernel);
+   the launch counts of the torch run, its phases ``scan.device`` and
+   ``cnv.nullmodel_dev``, every kernel's card time summed over the run
+   (torch.profiler) beside the sum of its launches' bounds, the seed_eval
+   launches by CUDA events and the card's busy time over the run; then
+   every kernel of that path against its plain version, bitwise and timed
+   beside it on the card, on the largest inputs that run handed it (a full
+   2^18-base tile for the tile kernel), each pass of the tile kernel and
+   the null model timed by CUDA events between its launches; and the
+   adversarial inputs: a coverage-spike tile whose first window spills its
+   mismatch list, a tile with no mismatch, the null model in batches of 64
+   segments;
 6. real size on the mesh engine: the same chromosome in a one-process NCCL
    group (its collectives are real NCCL calls on the card), on the 1x1
    grid of one card, byte-identical to phase 5's host output; the launch
-   counts of that run; then the depth and SV kernels against their plain
-   versions, bitwise and timed.
+   counts and summed card times of that run; then the depth and SV kernels
+   against their plain versions, bitwise and timed.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table (each kernel's time beside its bound: the larger of
@@ -75,6 +80,16 @@ KERNELS = {
                 "grom_tpu/parallel/pipeline.py:54"),
     "sv_score": ("grom_tpu_torch/csrc/sv_score.cu",
                  "grom_tpu/ops/sv_device.py:31"),
+}
+# name -> the CUDA functions (csrc/) of its launches, for card-time sums
+KERNEL_FUNCS = {
+    "tile_accumulate": ("tile_window", "tile_compact"),
+    "zscores": ("zs_block_last", "exclusive_cummax", "zs_eval"),
+    "seed_eval": ("seed_eval_tier1", "seed_eval_tier2"),
+    "null_model": ("null_prefix", "null_carry", "null_accum"),
+    "rd_scatter": ("rd_scatter_kernel",),
+    "rd_scan": ("rd_block_sums", "rd_block_offsets", "rd_block_scan"),
+    "sv_score": ("sv_score_kernel",),
 }
 # the kernels each engine's main path launches
 TORCH_PATH = ("tile_accumulate", "zscores", "seed_eval", "null_model",
@@ -245,17 +260,24 @@ def count_rows(vcf: str):
 # ---------------------------------------------------------------------------
 
 def _targets():
+    """name -> (module, the wrapper the main path calls, the wrapper held
+    to the plain version, the plain version). The tile path calls
+    ``tile_launch`` (packed result, no wait); ``tile_kernel`` is the same
+    launch, unpacked."""
     from grom_tpu_torch.ops import accumulate, cnv_device, rd_depth, sv_device
-    return {"tile_accumulate": (accumulate, "tile_kernel",
+    return {"tile_accumulate": (accumulate, "tile_launch", "tile_kernel",
                                 accumulate.tile_kernel_plain),
-            "zscores": (cnv_device, "zscores", cnv_device.zscores_plain),
-            "seed_eval": (cnv_device, "seed_eval",
+            "zscores": (cnv_device, "zscores", "zscores",
+                        cnv_device.zscores_plain),
+            "seed_eval": (cnv_device, "seed_eval", "seed_eval",
                           cnv_device.seed_eval_plain),
-            "null_model": (cnv_device, "null_model",
+            "null_model": (cnv_device, "null_model", "null_model",
                            cnv_device.null_model_plain),
-            "rd_scatter": (rd_depth, "rd_scatter", rd_depth.rd_scatter_plain),
-            "rd_scan": (rd_depth, "rd_scan", rd_depth.rd_scan_plain),
-            "sv_score": (sv_device, "sv_score",
+            "rd_scatter": (rd_depth, "rd_scatter", "rd_scatter",
+                           rd_depth.rd_scatter_plain),
+            "rd_scan": (rd_depth, "rd_scan", "rd_scan",
+                        rd_depth.rd_scan_plain),
+            "sv_score": (sv_device, "sv_score", "sv_score",
                          sv_device.score_sv_entries_plain)}
 
 
@@ -265,17 +287,20 @@ class Recorder:
     a full-width tile, the longest z block, the most window steps, the
     most null segments, the most deltas of a full-width cell, the widest
     cell, the most SV entries), so the kernel can then be held to its plain
-    version at the shapes the main path gave it."""
+    version at the shapes the main path gave it; and the bound of every
+    call (``bound_sum``), summed per kernel."""
 
     def __init__(self):
         self.best = {}
+        self.bound_sum = {}
         self._saved = {}
+        self._later = []         # seed_eval calls: bound read after the run
 
     @staticmethod
     def _weight(name, args, out):
         if name == "tile_accumulate":
             t = args[0]
-            return (int(t.chrom_up.shape[0]), int(t.cum[-1]))
+            return (int(t.chrom_up.shape[0]), t.n_events)
         if name == "zscores":
             return (int(args[0].shape[0]),)
         if name == "seed_eval":
@@ -289,22 +314,33 @@ class Recorder:
         return (int(args[0].shape[0]),)
 
     def __enter__(self):
-        for name, (mod, attr, _) in _targets().items():
+        for name, (mod, attr, _, _) in _targets().items():
             fn = getattr(mod, attr)
             self._saved[name] = (mod, attr, fn)
 
             def wrap(*a, _n=name, _f=fn):
                 out = _f(*a)
-                w = self._weight(_n, a, out)
-                if _n not in self.best or w > self.best[_n][0]:
-                    self.best[_n] = (w, a)
+                if _n == "seed_eval":
+                    self._later.append((a, out))
+                else:
+                    self._add(_n, a, out)
                 return out
             setattr(mod, attr, wrap)
         return self
 
+    def _add(self, name, a, out):
+        w = self._weight(name, a, out)
+        if name not in self.best or w > self.best[name][0]:
+            self.best[name] = (w, a)
+        self.bound_sum[name] = (self.bound_sum.get(name, 0.0)
+                                + bound(name, a, out)[0])
+
     def __exit__(self, *exc):
         for mod, attr, fn in self._saved.values():
             setattr(mod, attr, fn)
+        for a, out in self._later:
+            self._add("seed_eval", a, out)
+        self._later = []
 
 
 class LaunchTimer:
@@ -362,6 +398,30 @@ def device_times(prof) -> dict:
             "other_ms": other}
 
 
+def kernel_card_ms(card: dict, name: str) -> float:
+    """Summed card ms of the CUDA functions of kernel ``name`` in a
+    ``device_times`` result."""
+    funcs = KERNEL_FUNCS[name]
+    return sum(ms for key, ms in card["kernels"].items()
+               if re.search(r"\b(%s)\b" % "|".join(funcs), key))
+
+
+def report_run_sums(card: dict, rec: Recorder, launches: dict, names,
+                    label: str) -> dict:
+    """Per kernel of a run: card time summed over its launches against
+    the sum of those launches' bounds; returns name -> (card ms, bound
+    ms)."""
+    out = {}
+    for k in names:
+        ms = kernel_card_ms(card, k)
+        b = rec.bound_sum.get(k, 0.0)
+        out[k] = (ms, b)
+        say("%s %-15s %4d launches: card time %.3f ms (torch.profiler), "
+            "launches x bound %.4f ms, loss %.3f ms"
+            % (label, k, launches.get(k, 0), ms, b, ms - b))
+    return out
+
+
 def _nbytes(x) -> int:
     """Bytes of every tensor and array in ``x`` (also inside tuples,
     lists and dicts)."""
@@ -396,11 +456,18 @@ def bound(name, args, out):
     import numpy as np
     if name == "tile_accumulate":
         t = args[0]
-        ev = int(t.cum[-1])
+        ev = t.n_events
+        L = int(t.chrom_up.shape[0])
         # per aligned base: its read base and quality byte, and the tallies
-        # it adds to (class channel, bq, bq_all, mq, mq_all, n_hi, rc_all)
+        # it adds to (class channel, bq, bq_all, mq, mq_all, n_hi, rc_all);
+        # out: base_tot and the candidates (unpacked), or the packed
+        # result's header and base_tot (its row count is on the card, and
+        # reading it would add a sync to the timed run)
+        from grom_tpu_torch.ops.accumulate import result_len
         nb = (_nbytes([v for k, v in t._asdict().items()
-                       if k not in ("seq", "qual")]) + 2 * ev + _nbytes(out))
+                       if k not in ("seq", "qual")]) + 2 * ev
+              + (_nbytes(out) if isinstance(out, tuple)
+                 else 4 * result_len(L, 0)))
         ops, rate = 8 * ev, F32_OPS_S
     elif name == "zscores":
         # the per-base inputs and z; the sorted bin rows are searched, not
@@ -531,6 +598,11 @@ def _ms(fn) -> float:
     return start.elapsed_time(end) / reps
 
 
+# kernel -> the plain version's output on CPU copies of the last inputs
+# check_kernels held the kernel to
+PLAIN_ON_CPU = {}
+
+
 def check_kernels(rec: Recorder, label: str, timed: bool,
                   names=tuple(KERNELS)) -> dict:
     """Each recorded call of the kernels ``names`` against its plain
@@ -538,7 +610,7 @@ def check_kernels(rec: Recorder, label: str, timed: bool,
     ``timed``, also beside the plain version run on the card."""
     import torch
     results = {}
-    for name, (mod, attr, plain) in _targets().items():
+    for name, (mod, _, attr, plain) in _targets().items():
         if name not in names:
             continue
         if name not in rec.best:
@@ -549,7 +621,7 @@ def check_kernels(rec: Recorder, label: str, timed: bool,
         got = kernel(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = plain(*_to(args, "cpu"))
+        want = PLAIN_ON_CPU[name] = plain(*_to(args, "cpu"))
         cpu_s = time.perf_counter() - t0
         err, _ = _diff(got, want, exact=True)
         b_ms, b_by, b_bytes, b_ops = bound(name, args, got)
@@ -800,14 +872,71 @@ def phase_real_size() -> dict:
         "copies and sets %.1f ms) of %.2f s wall: idle share %.4f"
         % (card["kernel_ms"], card["other_ms"], t_dev,
            1.0 - (card["kernel_ms"] + card["other_ms"]) / 1e3 / t_dev))
+    say("phases of the torch run: scan.device %.3f s (%d tiles), "
+        "cnv.nullmodel_dev %.3f s"
+        % (wall("scan.device"), launches["tile_accumulate"],
+           wall("cnv.nullmodel_dev")))
+    sums = report_run_sums(card, rec, launches, TORCH_PATH, "torch run")
 
     say("-- kernels against their plain versions (inputs of this run; "
         "tolerance: integers exact, f64 bitwise)")
     res = check_kernels(rec, "real-size", timed=True, names=TORCH_PATH)
     for k, row in res.items():
         row["launches"] = launches[k]
+        row["run_ms"], row["run_bound_ms"] = sums[k]
+    check_adversarial(rec)
     torch.cuda.synchronize()
     return res
+
+
+def check_adversarial(rec: Recorder) -> None:
+    """The redesigned kernels pass by pass (CUDA events between their
+    launches) on the recorded largest inputs, and bitwise against their
+    plain versions on inputs built to break them: a coverage-spike tile
+    whose first window spills its mismatch list past shared memory, a tile
+    with no mismatch, the null model in batches of 64 segments."""
+    import numpy as np
+    import torch
+
+    from grom_tpu_torch.ops import accumulate, cnv_device
+    from grom_tpu_torch.testing.tiles import PARAMS, spike_tile
+    say("-- passes (CUDA events) and adversarial inputs (tolerance: "
+        "integers exact, f64 bitwise)")
+    tile_args = rec.best["tile_accumulate"][1]
+    say("largest tile %s: passes %s ms" % (
+        rec.best["tile_accumulate"][0], json.dumps(
+            accumulate.tile_pass_ms(*tile_args))))
+    p = dict(thr=accumulate.screen_threshold(PARAMS["min_ratio"]),
+             min_mapq=PARAMS["min_mapq"], min_bq=PARAMS["min_bq"],
+             min_snv=PARAMS["min_snv"], name_len_cap=PARAMS["name_len_cap"])
+    for label, mm in (("spike tile", True), ("tile without mismatches",
+                                             False)):
+        arrays, _ = spike_tile(0, mm)
+        t = accumulate.pack_tile(arrays, "cuda")
+        got = accumulate.tile_kernel(t, **p)
+        want = accumulate.tile_kernel_plain(accumulate.pack_tile(arrays,
+                                                                 "cpu"), **p)
+        _diff(got, want, exact=True)
+        if (got[1] > 2000) != mm or (mm and got[2]["pos"].numel() < 6):
+            raise AssertionError("%s: %d mismatch events, %d candidates"
+                                 % (label, got[1], got[2]["pos"].numel()))
+        say("%s (%d positions, %d aligned bases, %d hi & mm events, %d "
+            "candidates): equal to the plain version; passes %s ms"
+            % (label, t.chrom_up.shape[0], t.n_events, got[1],
+               got[2]["pos"].numel(), json.dumps(accumulate.tile_pass_ms(
+                   t, **p))))
+    z, gate, seg, minw, maxw = rec.best["null_model"][1]
+    say("largest null model (%d segments, batches of %d): passes %s ms"
+        % (len(seg.s), cnv_device.NULL_BATCH, json.dumps(
+            cnv_device.null_pass_ms(z, gate, seg, minw, maxw))))
+    got = cnv_device.null_model(z, gate, seg, minw, maxw, batch=64)
+    _diff(got, PLAIN_ON_CPU["null_model"], exact=True)
+    say("null model in batches of 64 (%d batches): equal to the plain "
+        "version; passes %s ms" % (-(-len(seg.s) // 64), json.dumps(
+            cnv_device.null_pass_ms(z, gate, seg, minw, maxw, batch=64))))
+    if not np.isfinite(got).all():
+        raise AssertionError("null model: non-finite window stdev")
+    torch.cuda.synchronize()
 
 
 def phase_real_size_mesh() -> dict:
@@ -833,10 +962,11 @@ def phase_real_size_mesh() -> dict:
                 or dist.get_backend(mesh.group) != "nccl"):
             raise AssertionError("mesh %s in group %s" % (mesh.shape,
                                                           mesh.group))
-        with Recorder() as rec:
+        with Recorder() as rec, card_profile() as prof:
             _build.reset_launches()
             t_mesh = run_cli(args + ["-o", mesh_vcf], "mesh")
             launches = dict(_build.LAUNCHES)
+        card = device_times(prof)
         same_files(mesh_vcf, os.path.join(OUT, "bulk.host.vcf"))
         say("VCF and .ctx.vcf byte-identical to the host engine's; mesh "
             "engine %.2f s on a %dx%d grid" % ((t_mesh,) + mesh.shape))
@@ -849,6 +979,8 @@ def phase_real_size_mesh() -> dict:
             if launches[k] < cells:
                 raise AssertionError("%d %s launches < %d cells"
                                      % (launches[k], k, cells))
+        sums = report_run_sums(card, rec, launches, tuple(KERNELS),
+                               "mesh run")
         say("-- kernels against their plain versions (inputs of this run; "
             "tolerance: integers exact, f64 bitwise)")
         res = check_kernels(rec, "mesh real-size", timed=True,
@@ -865,6 +997,7 @@ def phase_real_size_mesh() -> dict:
                _ms(lambda: torch.cumsum(delta, 1, dtype=torch.int32))))
         for k, row in res.items():
             row["launches"] = launches[k]
+            row["run_ms"], row["run_bound_ms"] = sums[k]
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()

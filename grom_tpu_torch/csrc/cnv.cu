@@ -4,7 +4,8 @@
 // Replaces, in grom_tpu/ops/cnv_device.py:
 //   zscores_device (inner ``kern``)    -> gt_zscores
 //   seed_eval_device (vmapped ``one``) -> gt_seed_eval (two tiers)
-//   null_model_device (``eval_batch``) -> gt_null_prefix + gt_null_accum
+//   null_model_device (``eval_batch``) -> gt_null_model (three passes a
+//                                         batch of segments)
 //
 // What bounds them on an H100:
 //   * z-scores: one thread per base, two binary searches into the base's
@@ -36,11 +37,23 @@
 //     largest launches: about 8 instructions per window offset, most of
 //     them lane 0's chain and the ballots, so the rate at which a warp
 //     scheduler starts instructions bounds it, far above the FP64 bound.
-//   * null model: pass A writes each segment's sequential prefix of gated z
-//     and of gate counts to scratch (one thread per segment, segments in
-//     bounded batches); pass B gives every window length one owner thread
-//     that walks the segments in order. Bounded by pass A's sequential
-//     walk of maxw positions.
+//   * null model: per batch of segments, pass A writes each segment's
+//     sequential prefix of gated z and of gate counts to scratch, one warp a
+//     segment: loads and stores 64 consecutive positions at a time, the
+//     counts by ballots, the f64 chain by lane 0 from registers loaded
+//     from shared memory, with the gate and z loads of the next two chunks
+//     already issued. A one-warp pass walks the segments' totals in order
+//     into each segment's carry (the host's ``_carries``, resets included;
+//     lane 0 adds), continuing a running state kept on the card. Pass B
+//     gives every window length one owner thread (small blocks, so the
+//     10,000 owners spread over every SM) that walks the batch's segments
+//     in order, with their parameters staged in shared memory and sixteen
+//     segments' loads and divisions ahead of its add chain. All batches go
+//     back to back on the stream: no host round trip, one copy back of the
+//     sums and counts. Pass B takes the most time, held by its loads of the
+//     batch's prefixes (12 bytes per owner and segment), not by its
+//     arithmetic: deeper loads ahead, other block sizes and no division at
+//     all measured about the same.
 //
 // Exactness: results are held to the host's bits (call/cnv.py,
 // native/grom_cnv.c): every sum accumulates sequentially in the host's
@@ -489,51 +502,256 @@ __global__ void seed_eval_tier2(SeedIn s, const int64_t* seeds,
       any_good ? seed + lastg : (c.begin0 ? seed + s.minw : 0), c_sd, n);
 }
 
-// Pass A: per segment, the sequential prefix of gated z and gate counts
-// (row stride maxw), plus the segment totals.
+// Pass A: one warp per segment of the batch: the sequential prefix of
+// gated z and of gate counts (row stride maxw), plus the segment totals.
+constexpr int NP_WARPS = 4;            // segments per block of pass A
+constexpr int NP_CHUNK = 64;           // positions of pass A's chain a step
+constexpr int NA_THREADS = 64;         // window lengths per block of pass B
+constexpr int NA_AHEAD = 16;           // segments pass B loads ahead
+constexpr int NA_CHUNK = 256;          // segments pass B stages at a time
+constexpr unsigned NULL_FULL = 0xffffffffu;
+
 __global__ void null_prefix(const double* z, const uint8_t* gate,
                             const int64_t* seg_s, const int64_t* seg_n,
-                            long S, long maxw, double* pz, int32_t* pc,
+                            long nb, long maxw, double* pz, int32_t* pc,
                             double* seg_z, int64_t* seg_c) {
-  const long i = (long)blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= S) return;
-  const long s = seg_s[i];
-  const long n = seg_n[i];
-  double acc = 0.0;
+  __shared__ double buf[NP_WARPS][NP_CHUNK];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const long k = (long)blockIdx.x * NP_WARPS + wib;
+  if (k >= nb) return;                 // the whole warp
+  const long s = seg_s[k];
+  const long n = seg_n[k];
+  double* prow = pz + k * maxw;
+  int32_t* crow = pc + k * maxw;
+  double* sb = buf[wib];
+  const unsigned le = (2u << lane) - 1u;   // lanes at or below this one
+  double acc = 0.0;                    // lane 0's running sum
   int32_t cnt = 0;
-  for (long j = 0; j < n; ++j) {
-    const bool g = gate[s + j] != 0;
-    const double v = g ? z[s + j] : 0.0;
-    acc = j == 0 ? v : acc + v;      // numpy cumsum: out[0] = in[0]
-    cnt += g;
-    pz[i * maxw + j] = acc;
-    pc[i * maxw + j] = cnt;
+  // a chunk is NP_CHUNK = 64 positions, two a lane (lane, lane + 32).
+  // Gate and z are loaded side by side (z is not behind its gate) and two
+  // chunks ahead of the chain; the gate is applied when a chunk's turn
+  // comes.
+  struct Raw {
+    uint8_t ga, gb;
+    double za, zb;
+  };
+  auto load = [&](long j0) {
+    const long ja = j0 + lane;
+    const long jb = ja + 32;
+    Raw r;
+    r.ga = ja < n ? gate[s + ja] : 0;
+    r.za = ja < n ? z[s + ja] : 0.0;
+    r.gb = jb < n ? gate[s + jb] : 0;
+    r.zb = jb < n ? z[s + jb] : 0.0;
+    return r;
+  };
+  Raw r0 = load(0);
+  Raw r1 = load(NP_CHUNK);
+  for (long j0 = 0; j0 < n; j0 += NP_CHUNK) {
+    const long ja = j0 + lane;
+    const long jb = ja + 32;
+    const Raw r2 = load(j0 + 2 * NP_CHUNK);
+    const bool ga = r0.ga != 0;
+    const bool gb = r0.gb != 0;
+    const double va = ga ? r0.za : 0.0;
+    const double vb = gb ? r0.zb : 0.0;
+    const unsigned bal_a = __ballot_sync(NULL_FULL, ga);
+    const unsigned bal_b = __ballot_sync(NULL_FULL, gb);
+    sb[lane] = va;
+    sb[lane + 32] = vb;
+    __syncwarp();
+    if (lane == 0) {
+      const long m = n - j0 < NP_CHUNK ? n - j0 : NP_CHUNK;
+      double x[NP_CHUNK];
+#pragma unroll
+      for (int i = 0; i < NP_CHUNK; ++i) x[i] = sb[i];
+      int i0 = 0;
+      if (j0 == 0) {                   // numpy's cumsum: out[0] = in[0]
+        acc = x[0];
+        sb[0] = acc;
+        i0 = 1;
+      }
+#pragma unroll
+      for (int i = 0; i < NP_CHUNK; ++i) {
+        if (i >= i0 && i < m) {
+          acc = acc + x[i];
+          sb[i] = acc;
+        }
+      }
+    }
+    __syncwarp();
+    if (ja < n) {
+      prow[ja] = sb[lane];
+      crow[ja] = cnt + __popc(bal_a & le);
+    }
+    if (jb < n) {
+      prow[jb] = sb[lane + 32];
+      crow[jb] = cnt + __popc(bal_a) + __popc(bal_b & le);
+    }
+    cnt += __popc(bal_a) + __popc(bal_b);
+    __syncwarp();
+    r0 = r1;
+    r1 = r2;
   }
-  seg_z[i] = acc;
-  seg_c[i] = cnt;
+  if (lane == 0) {
+    seg_z[k] = acc;
+    seg_c[k] = cnt;
+  }
 }
 
-// Pass B: one thread per window length w, segments in order.
+// The carries of the batch's segments in the host's order (call/cnv.py
+// _null_window_model; ops/cnv_device.py _carries): the running total since
+// the last reset, continued from ``state`` and left there for the next
+// batch. One warp: it loads and stores 32 segments at a time, lane 0 runs
+// the sequential f64 chain from shared memory.
+__global__ void null_carry(const double* seg_z, const int64_t* seg_c,
+                           const int64_t* seg_reset, long nb, double* state_z,
+                           int64_t* state_c, double* tot0, int64_t* cnt0) {
+  __shared__ double z[32], t[32];
+  __shared__ int64_t c[32], r[32], tc[32];
+  const int lane = threadIdx.x;
+  double rz = *state_z;
+  int64_t rc = *state_c;
+  for (long k0 = 0; k0 < nb; k0 += 32) {
+    const long k = k0 + lane;
+    const bool in = k < nb;
+    z[lane] = in ? seg_z[k] : 0.0;
+    c[lane] = in ? seg_c[k] : 0;
+    r[lane] = in ? seg_reset[k] : 0;
+    __syncwarp();
+    if (lane == 0) {
+      const int m = nb - k0 < 32 ? (int)(nb - k0) : 32;
+      for (int i = 0; i < m; ++i) {
+        if (r[i]) {
+          rz = 0.0;
+          rc = 0;
+        }
+        t[i] = rz;
+        tc[i] = rc;
+        rz = rz + z[i];
+        rc += c[i];
+      }
+    }
+    __syncwarp();
+    if (in) {
+      tot0[k] = t[lane];
+      cnt0[k] = tc[lane];
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    *state_z = rz;
+    *state_c = rc;
+  }
+}
+
+// Pass B: one owner per window length w >= minw, the batch's segments in
+// order. The block stages NA_CHUNK segments' parameters in shared memory;
+// each owner then loads NA_AHEAD segments' prefix values at once (every
+// load unconditional, at a valid address) and computes their squares
+// before it adds them, in order, to its running sum.
 __global__ void null_accum(const double* pz, const int32_t* pc,
                            const int64_t* seg_n, const int64_t* seg_w,
-                           const double* tot0, const int64_t* cnt0, long S,
+                           const double* tot0, const int64_t* cnt0, long nb,
                            long minw, long maxw, double* sums,
                            int64_t* counts) {
-  const long w = (long)blockIdx.x * BLOCK + threadIdx.x + 1;
-  if (w > maxw || w < minw) return;
-  double sum = sums[w];
-  int64_t count = counts[w];
-  for (long i = 0; i < S; ++i) {
-    const long j = w - seg_w[i] - 1;
-    if (j < 0 || j >= seg_n[i]) continue;
-    const int64_t c = cnt0[i] + pc[i * maxw + j];
-    if (c <= 0) continue;
-    const double v = (tot0[i] + pz[i * maxw + j]) / (double)c;
-    sum = sum + v * v;
-    count += 1;
+  __shared__ int64_t s_n[NA_CHUNK], s_w[NA_CHUNK], s_c[NA_CHUNK];
+  __shared__ double s_t[NA_CHUNK];
+  const long w = minw + (long)blockIdx.x * NA_THREADS + threadIdx.x;
+  const bool own = w <= maxw;
+  double sum = own ? sums[w] : 0.0;
+  int64_t count = own ? counts[w] : 0;
+  for (long c0 = 0; c0 < nb; c0 += NA_CHUNK) {
+    const int m = nb - c0 < NA_CHUNK ? (int)(nb - c0) : NA_CHUNK;
+    __syncthreads();
+    for (int i = threadIdx.x; i < m; i += NA_THREADS) {
+      s_n[i] = seg_n[c0 + i];
+      s_w[i] = seg_w[c0 + i];
+      s_c[i] = cnt0[c0 + i];
+      s_t[i] = tot0[c0 + i];
+    }
+    __syncthreads();
+    if (!own) continue;
+    for (int u0 = 0; u0 < m; u0 += NA_AHEAD) {
+      double sq[NA_AHEAD], zv[NA_AHEAD];
+      int32_t cv[NA_AHEAD];
+      bool in[NA_AHEAD], use[NA_AHEAD];
+      // every load first, unconditional and at a valid address, so all
+      // NA_AHEAD segments' loads are in flight together
+#pragma unroll
+      for (int u = 0; u < NA_AHEAD; ++u) {
+        const int i = u0 + u < m ? u0 + u : 0;
+        const long j = w - s_w[i] - 1;
+        in[u] = u0 + u < m && j >= 0 && j < s_n[i];
+        const long at = (c0 + i) * maxw + (in[u] ? j : 0);
+        cv[u] = pc[at];
+        zv[u] = pz[at];
+      }
+#pragma unroll
+      for (int u = 0; u < NA_AHEAD; ++u) {
+        const int i = u0 + u < m ? u0 + u : 0;
+        const int64_t c = s_c[i] + cv[u];
+        use[u] = in[u] && c > 0;
+        // an unused slot divides 0 by 1: no special case in the division
+        const double v = (use[u] ? s_t[i] + zv[u] : 0.0)
+            / (use[u] ? (double)c : 1.0);
+        sq[u] = v * v;
+      }
+#pragma unroll
+      for (int u = 0; u < NA_AHEAD; ++u) {
+        if (use[u]) {
+          sum = sum + sq[u];
+          count += 1;
+        }
+      }
+    }
   }
-  sums[w] = sum;
-  counts[w] = count;
+  if (own) {
+    sums[w] = sum;
+    counts[w] = count;
+  }
+}
+
+inline size_t align256(size_t n) { return (n + 255) / 256 * 256; }
+
+// scratch of one batch of B segments: pz, pc, the totals, the carries and
+// the running state
+struct NullScratch {
+  double* pz;
+  int32_t* pc;
+  double* seg_z;
+  int64_t* seg_c;
+  double* tot0;
+  int64_t* cnt0;
+  double* state_z;
+  int64_t* state_c;
+};
+
+NullScratch null_carve(void* scratch, long B, long maxw) {
+  char* p = (char*)scratch;
+  NullScratch n;
+  n.pz = (double*)p;
+  p += align256(sizeof(double) * B * maxw);
+  n.pc = (int32_t*)p;
+  p += align256(sizeof(int32_t) * B * maxw);
+  n.seg_z = (double*)p;
+  p += align256(sizeof(double) * B);
+  n.seg_c = (int64_t*)p;
+  p += align256(sizeof(int64_t) * B);
+  n.tot0 = (double*)p;
+  p += align256(sizeof(double) * B);
+  n.cnt0 = (int64_t*)p;
+  p += align256(sizeof(int64_t) * B);
+  n.state_z = (double*)p;
+  n.state_c = (int64_t*)(p + sizeof(double));
+  return n;
+}
+
+long null_scratch_bytes(long B, long maxw) {
+  return (long)(align256(sizeof(double) * B * maxw)
+                + align256(sizeof(int32_t) * B * maxw)
+                + 4 * align256(8 * B) + 256);
 }
 
 }  // namespace
@@ -616,29 +834,73 @@ int gt_seed_eval(void* svals, void* flags, void* win_std, long L, long minw,
   return (int)cudaGetLastError();
 }
 
-// Pass A for one batch of S segments; ``pz``/``pc`` are [S, maxw].
-int gt_null_prefix(void* z, void* gate, void* seg_s, void* seg_n, long S,
-                   long maxw, void* pz, void* pc, void* seg_z, void* seg_c,
-                   void* stream) {
-  if (S <= 0) return (int)cudaGetLastError();
-  null_prefix<<<blocks_for(S), BLOCK, 0, (cudaStream_t)stream>>>(
-      (const double*)z, (const uint8_t*)gate, (const int64_t*)seg_s,
-      (const int64_t*)seg_n, S, maxw, (double*)pz, (int32_t*)pc,
-      (double*)seg_z, (int64_t*)seg_c);
-  return (int)cudaGetLastError();
+// Bytes of the scratch ``gt_null_model`` needs for batches of B segments:
+// about 12 * B * maxw, whatever the number of segments.
+long gt_null_scratch_bytes(long B, long maxw) {
+  return null_scratch_bytes(B, maxw);
 }
 
-// Pass B for the same batch; ``sums``/``counts`` ([maxw + 1]) carry over
-// from batch to batch in segment order.
-int gt_null_accum(void* pz, void* pc, void* seg_n, void* seg_w, void* tot0,
-                  void* cnt0, long S, long minw, long maxw, void* sums,
-                  void* counts, void* stream) {
-  if (S <= 0) return (int)cudaGetLastError();
-  null_accum<<<blocks_for(maxw), BLOCK, 0, (cudaStream_t)stream>>>(
-      (const double*)pz, (const int32_t*)pc, (const int64_t*)seg_n,
-      (const int64_t*)seg_w, (const double*)tot0, (const int64_t*)cnt0, S,
-      minw, maxw, (double*)sums, (int64_t*)counts);
-  return (int)cudaGetLastError();
+// The null model over S segments (``segs`` int64 [4, S]: start, length,
+// window length carried in, reset), in batches of B back to back on
+// ``stream``; ``out`` int64 [2, maxw + 1] gets the sums (f64 bits) and the
+// counts per window length. With ``pass_ms`` (float [3], else null) the
+// call also sums each pass's card time over the batches (CUDA events) and
+// waits for them.
+int gt_null_model(void* z, void* gate, void* segs, long S, long minw,
+                  long maxw, long B, void* scratch, void* out,
+                  float* pass_ms, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* seg = (const int64_t*)segs;
+  const NullScratch n = null_carve(scratch, B, maxw);
+  double* sums = (double*)out;
+  int64_t* counts = (int64_t*)out + (maxw + 1);
+  cudaError_t e = cudaMemsetAsync(out, 0, 2 * sizeof(int64_t) * (maxw + 1),
+                                  st);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(n.state_z, 0, sizeof(double) + sizeof(int64_t), st);
+  if (e != cudaSuccess) return (int)e;
+  const long nbatch = S > 0 ? (S + B - 1) / B : 0;
+  const bool timed = pass_ms != nullptr;
+  cudaEvent_t* ev = nullptr;
+  if (timed) {
+    ev = new cudaEvent_t[3 * nbatch + 1];
+    for (long i = 0; i < 3 * nbatch + 1; ++i) cudaEventCreate(&ev[i]);
+    cudaEventRecord(ev[0], st);
+  }
+  const long na_blocks = maxw >= minw
+      ? (maxw - minw + NA_THREADS) / NA_THREADS : 0;
+  for (long b = 0; b < nbatch; ++b) {
+    const long b0 = b * B;
+    const long nb = S - b0 < B ? S - b0 : B;
+    null_prefix<<<(int)((nb + NP_WARPS - 1) / NP_WARPS), 32 * NP_WARPS, 0,
+                  st>>>((const double*)z, (const uint8_t*)gate, seg + b0,
+                        seg + S + b0, nb, maxw, n.pz, n.pc, n.seg_z,
+                        n.seg_c);
+    if (timed) cudaEventRecord(ev[3 * b + 1], st);
+    null_carry<<<1, 32, 0, st>>>(n.seg_z, n.seg_c, seg + 3 * S + b0, nb,
+                                n.state_z, n.state_c, n.tot0, n.cnt0);
+    if (timed) cudaEventRecord(ev[3 * b + 2], st);
+    if (na_blocks > 0)
+      null_accum<<<(int)na_blocks, NA_THREADS, 0, st>>>(
+          n.pz, n.pc, seg + S + b0, seg + 2 * S + b0, n.tot0, n.cnt0, nb,
+          minw, maxw, sums, counts);
+    if (timed) cudaEventRecord(ev[3 * b + 3], st);
+  }
+  e = cudaGetLastError();
+  if (timed) {
+    pass_ms[0] = pass_ms[1] = pass_ms[2] = 0.0f;
+    if (nbatch > 0) cudaEventSynchronize(ev[3 * nbatch]);
+    for (long b = 0; b < nbatch; ++b) {
+      for (int k = 0; k < 3; ++k) {
+        float t = 0.0f;
+        cudaEventElapsedTime(&t, ev[3 * b + k], ev[3 * b + k + 1]);
+        pass_ms[k] += t;
+      }
+    }
+    for (long i = 0; i < 3 * nbatch + 1; ++i) cudaEventDestroy(ev[i]);
+    delete[] ev;
+  }
+  return (int)e;
 }
 
 }  // extern "C"

@@ -5,15 +5,24 @@ The chromosome range of a detect sub-chunk is cut into 2^18-base position
 tiles; spans are clipped at tile edges on the host (``SpanIndex``), so every
 per-base statistic is tile-local. Each tile goes through one kernel:
 
-* ``tile_kernel`` dispatches on the device of its inputs: CUDA tensors go to
-  the hand-written kernel in ``csrc/tile_accumulate.cu``, CPU tensors to
-  ``tile_kernel_plain``, the same computation in plain torch.
+* ``tile_inputs`` packs a tile's sixteen arrays into one buffer (pinned for
+  a CUDA device) and uploads it in one copy; ``TileInputs`` holds views of
+  it.
+* ``tile_launch`` enqueues the tile and returns its packed result (header,
+  base_tot, candidate rows; ``HDR``/``REC``) without waiting: CUDA tensors
+  go to the hand-written kernel in ``csrc/tile_accumulate.cu``, CPU tensors
+  to ``tile_kernel_plain``, the same computation in plain torch.
+* ``tile_kernel`` returns the unpacked result, as ``tile_kernel_plain``
+  does, after one sync to read the header.
 * ``TorchAccumulator.run`` has the signature and return contract of
   grom_tpu's ``DeviceAccumulator.run``, so the SNV caller
-  (``call/snv.py candidates_from_device``) consumes its dict unchanged.
+  (``call/snv.py candidates_from_device``) consumes its dict unchanged. Per
+  tile: one upload, one launch, one copy back of the header, base_tot and
+  the candidate rows, one sync.
 
 Tiles take runtime sizes: there are no padded buckets, no overflow ladder
-and no host fallback. The candidate outputs are sized by a count pass.
+and no host fallback. The card bounds every buffer by sizes the host knows
+(positions, aligned bases), so no launch waits for a count.
 """
 
 from __future__ import annotations
@@ -30,16 +39,25 @@ from grom_tpu_torch import _build
 NT = 4
 TILE_L = 1 << 18      # positions per tile
 NAME_LEN_CAP = 50     # names at least this long are never stored by dedup
-_BLOCK = 256          # threads per block of the CUDA passes
 
 CAND_KEYS = ("pos", "counts", "lowmq", "pos_in_read", "fstrand", "bq",
              "bq_all", "mq", "mq_all", "bq_read_count", "mq_read_count",
              "read_count_all")
 _CHANNELS = ("counts", "lowmq", "pos_in_read", "fstrand")
+_SCALARS = CAND_KEYS[1 + len(_CHANNELS):]
+
+# A tile's result, int32: a header of HDR entries (H_NMM hi & mm events,
+# H_K candidates, H_ERR spans out of order), base_tot [L], then K candidate
+# rows of REC entries in CAND_KEYS order (pos tile-local; four per channel)
+HDR = 8
+H_NMM, H_K, H_ERR = 0, 1, 2
+REC = 1 + NT * len(_CHANNELS) + len(_SCALARS)
+K_GUESS = 4096        # candidate rows the first copy back of a tile brings
 
 
 class TileInputs(NamedTuple):
-    """One tile's tensors at runtime sizes, all on one device.
+    """One tile's tensors at runtime sizes, all on one device (``pack_tile``
+    makes them views of one buffer).
 
     Spans (S): ``span_read`` (tile-local read index), ``span_ref``
     (tile-local start), ``span_off`` (read-base offset), int32; ``cum``
@@ -47,7 +65,10 @@ class TileInputs(NamedTuple):
     u8, ``mapq`` u8, ``flag`` int32, ``lseq`` int32, ``seq_off`` int32
     (into ``seq``/``qual``), ``name_id`` int32, ``name_len`` u8. Bytes (Q):
     ``seq``, ``qual`` u8. Positions (L): ``chrom_up`` u8 (uppercased
-    reference), ``is_n`` bool, ``gate`` u8."""
+    reference), ``is_n`` bool, ``gate`` u8. Host ints: ``n_events`` =
+    cum[S], ``max_span`` the longest span. The CUDA kernel also needs the
+    spans in non-decreasing ``span_ref`` order (``SpanIndex`` order); the
+    plain version takes any order."""
     span_read: torch.Tensor
     span_ref: torch.Tensor
     span_off: torch.Tensor
@@ -64,6 +85,8 @@ class TileInputs(NamedTuple):
     chrom_up: torch.Tensor
     is_n: torch.Tensor
     gate: torch.Tensor
+    n_events: int
+    max_span: int
 
 
 _DTYPES = dict(span_read=torch.int32, span_ref=torch.int32,
@@ -72,6 +95,8 @@ _DTYPES = dict(span_read=torch.int32, span_ref=torch.int32,
                seq_off=torch.int32, name_id=torch.int32,
                name_len=torch.uint8, seq=torch.uint8, qual=torch.uint8,
                chrom_up=torch.uint8, is_n=torch.bool, gate=torch.uint8)
+_NP_DTYPES = {k: np.dtype(str(v).replace("torch.", "")) for k, v in
+              _DTYPES.items()}
 
 
 def screen_threshold(min_ratio: float) -> float:
@@ -126,11 +151,45 @@ class SpanIndex:
                 (t_off + delta)[keep], t_len[keep])
 
 
+def pack_tile(arrays: dict, device) -> TileInputs:
+    """``TileInputs`` on ``device`` from the tile's arrays (numpy, keyed by
+    field name, any integer or bool dtype): packed into one host buffer at
+    16-byte aligned offsets, uploaded in one copy, each field a view of the
+    one buffer. For a CUDA device the host buffer is pinned and the copy is
+    not waited for: torch's caching host allocator hands the pinned block
+    out again only once the copy out of it has finished."""
+    dev = torch.device(device)
+    offs, total = [], 0
+    for name, dt in _DTYPES.items():
+        n = len(arrays[name]) * dt.itemsize
+        offs.append((name, total, n))
+        total += -(-n // 16) * 16
+    total = max(total, 16)
+    host = torch.empty(total, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
+    hb = host.numpy()
+    for name, off, n in offs:
+        hb[off:off + n].view(_NP_DTYPES[name])[:] = arrays[name]
+    if dev.type == "cpu":
+        buf = host
+    elif dev.type == "cuda":
+        with torch.cuda.device(dev):
+            buf = host.to(dev, non_blocking=True)
+    else:
+        buf = host.to(dev)
+    cum = np.asarray(arrays["cum"])
+    return TileInputs(**{name: buf[off:off + n].view(_DTYPES[name])
+                         for name, off, n in offs},
+                      n_events=int(cum[-1]),
+                      max_span=int(np.diff(cum).max()) if len(cum) > 1 else 0)
+
+
 def tile_inputs(sindex: SpanIndex, reads, elig_u8: np.ndarray, t0: int,
                 t1: int, chrom_up: np.ndarray, is_n: np.ndarray,
                 gate: np.ndarray, device) -> Optional[TileInputs]:
-    """The tile [t0, t1) as device tensors; ``chrom_up``/``is_n``/``gate``
-    are already cut to the tile. None when no span reaches the tile."""
+    """The tile [t0, t1) on ``device`` (one upload); ``chrom_up``/``is_n``/
+    ``gate`` are already cut to the tile. None when no span reaches the
+    tile."""
     t_read, t_ref, t_off, t_len = sindex.slice_range(t0, t1)
     S = len(t_len)
     if S == 0:
@@ -144,25 +203,14 @@ def tile_inputs(sindex: SpanIndex, reads, elig_u8: np.ndarray, t0: int,
     if cum[-1] >= 1 << 31:
         raise ValueError("tile [%d, %d) holds %d aligned bases, above the "
                          "int32 event index" % (t0, t1, cum[-1]))
-    dev = device
-    return TileInputs(
-        span_read=to_device(t_read - r0, np.int32, dev),
-        span_ref=to_device(t_ref, np.int32, dev),
-        span_off=to_device(t_off, np.int32, dev),
-        cum=to_device(cum, np.int32, dev),
-        elig=to_device(elig_u8[r0:r1], np.uint8, dev),
-        mapq=to_device(reads.mapq[r0:r1], np.uint8, dev),
-        flag=to_device(reads.flag[r0:r1], np.int32, dev),
-        lseq=to_device(reads.lseq[r0:r1], np.int32, dev),
-        seq_off=to_device(reads.seq_off[r0:r1].astype(np.int64) - q0, np.int32,
-                    dev),
-        name_id=to_device(reads.name_id[r0:r1], np.int32, dev),
-        name_len=to_device(reads.name_len[r0:r1], np.uint8, dev),
-        seq=to_device(reads.seq[q0:q1], np.uint8, dev),
-        qual=to_device(reads.qual[q0:q1], np.uint8, dev),
-        chrom_up=to_device(chrom_up, np.uint8, dev),
-        is_n=to_device(is_n, np.bool_, dev),
-        gate=to_device(gate, np.uint8, dev))
+    return pack_tile(dict(
+        span_read=t_read - r0, span_ref=t_ref, span_off=t_off, cum=cum,
+        elig=elig_u8[r0:r1], mapq=reads.mapq[r0:r1],
+        flag=reads.flag[r0:r1], lseq=reads.lseq[r0:r1],
+        seq_off=reads.seq_off[r0:r1].astype(np.int64) - q0,
+        name_id=reads.name_id[r0:r1], name_len=reads.name_len[r0:r1],
+        seq=reads.seq[q0:q1], qual=reads.qual[q0:q1], chrom_up=chrom_up,
+        is_n=is_n, gate=gate), device)
 
 
 def _lut(device) -> torch.Tensor:
@@ -283,12 +331,13 @@ def tile_kernel_plain(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("tile_accumulate")
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tile = [P] * 4 + [I] + [P] * 10 + [I] * 4
-    _build.bind(lib, "gt_tile_events", tile + [I, P, P, P])
-    _build.bind(lib, "gt_tile_dedup_screen",
-                tile + [I, P, P, P, P, P, P, I, P, P, F, P, P, P, P])
-    _build.bind(lib, "gt_tile_compact", tile + [P] * 15 + [I, P])
+    P, I, Lg, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
+    _build.bind(lib, "gt_tile_accumulate",
+                [P] * 4 + [I] + [P] * 12 + [I, Lg] + [I] * 5 + [F] + [P] * 4)
+    for fn, args in (("gt_tile_scratch_bytes", [I, Lg]),
+                     ("gt_tile_result_len", [I])):
+        getattr(lib, fn).restype = Lg
+        getattr(lib, fn).argtypes = args
     return lib
 
 
@@ -302,73 +351,155 @@ def _check_tile(t: TileInputs) -> None:
                              % (name, want, dev, x.dtype, x.device))
 
 
-def _tile_kernel_cuda(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
-                      min_snv: int, name_len_cap: int):
+def _tile_launch_cuda(t: TileInputs, thr: float, min_mapq: int,
+                      min_bq: int, min_snv: int, name_len_cap: int,
+                      pass_ms=None) -> torch.Tensor:
     _check_tile(t)
     lib = _lib()
     dev = t.cum.device
     L = int(t.chrom_up.shape[0])
-    S = int(t.span_read.shape[0])
-    E = int(t.cum[-1])
-    stream = _build.stream_ptr(dev)
-    targs = (t.span_read.data_ptr(), t.span_ref.data_ptr(),
-             t.span_off.data_ptr(), t.cum.data_ptr(), S, t.elig.data_ptr(),
-             t.mapq.data_ptr(), t.flag.data_ptr(), t.lseq.data_ptr(),
-             t.seq_off.data_ptr(), t.name_id.data_ptr(),
-             t.name_len.data_ptr(), t.seq.data_ptr(), t.qual.data_ptr(),
-             t.chrom_up.data_ptr(), L, min_mapq, min_bq, name_len_cap)
+    scratch = torch.empty(lib.gt_tile_scratch_bytes(L, t.n_events),
+                          dtype=torch.uint8, device=dev)
+    res = torch.empty(lib.gt_tile_result_len(L), dtype=torch.int32,
+                      device=dev)
+    ptrs = [getattr(t, name).data_ptr() for name in _DTYPES]
+    _build.check(lib, lib.gt_tile_accumulate(
+        *ptrs[:4], int(t.span_read.shape[0]), *ptrs[4:], L, t.n_events,
+        t.max_span, min_mapq, min_bq, min_snv, name_len_cap, thr,
+        scratch.data_ptr(), res.data_ptr(),
+        None if pass_ms is None else pass_ms.ctypes.data,
+        _build.stream_ptr(dev)), "tile_accumulate")
+    return res
+
+
+def pack_result(base_tot: torch.Tensor, n_mm: int, cand: dict
+                ) -> torch.Tensor:
+    """``tile_kernel_plain``'s outputs in the packed result layout (header,
+    base_tot, K candidate rows)."""
     i32 = torch.int32
-    tally = torch.zeros((22, L), dtype=i32, device=dev)
-    mm_count = torch.zeros(L, dtype=i32, device=dev)
-    _build.check(lib, lib.gt_tile_events(*targs, E, tally.data_ptr(),
-                                         mm_count.data_ptr(), stream),
-                 "tile_events")
-    # per-position CSR of the hi & mm events (count -> scan -> fill)
-    ends = torch.cumsum(mm_count, 0, dtype=torch.int64)
-    off = ends - mm_count
-    n_mm = int(ends[-1]) if L else 0
-    fill = torch.zeros(L, dtype=i32, device=dev)
-    csr = torch.empty(max(n_mm, 1), dtype=i32, device=dev)
-    table = torch.empty(max(n_mm, 1), dtype=i32, device=dev)
-    base_tot = torch.empty(L, dtype=i32, device=dev)
-    flag = torch.empty(L, dtype=torch.uint8, device=dev)
-    nblk = (L + _BLOCK - 1) // _BLOCK
-    block_count = torch.empty(nblk, dtype=i32, device=dev)
-    _build.check(lib, lib.gt_tile_dedup_screen(
-        *targs, E, tally.data_ptr(), mm_count.data_ptr(), off.data_ptr(),
-        fill.data_ptr(), csr.data_ptr(), table.data_ptr(), min_snv,
-        t.is_n.data_ptr(), t.gate.data_ptr(), thr, base_tot.data_ptr(),
-        flag.data_ptr(), block_count.data_ptr(), stream),
-        "tile_dedup_screen")
-    block_end = torch.cumsum(block_count, 0, dtype=torch.int64)
-    block_off = block_end - block_count
-    K = int(block_end[-1]) if nblk else 0
-    cand = dict(pos=torch.empty(K, dtype=torch.int64, device=dev))
+    hdr = torch.zeros(HDR, dtype=i32)
+    hdr[H_NMM] = n_mm
+    hdr[H_K] = cand["pos"].shape[0]
+    rows = torch.cat([cand["pos"].to(i32)[None]]
+                     + [cand[k].to(i32) for k in _CHANNELS]
+                     + [cand[k].to(i32)[None] for k in _SCALARS])
+    return torch.cat([hdr.to(base_tot.device), base_tot.to(i32),
+                      rows.t().reshape(-1)])
+
+
+def result_len(L: int, K: int) -> int:
+    """int32 entries of a packed result up to its K-th candidate row."""
+    return HDR + L + K * REC
+
+
+def result_header(res):
+    """The HDR header entries of a packed result (a view)."""
+    return res[:HDR]
+
+
+def result_base_tot(res, L: int):
+    """base_tot [L] of a packed result (a view)."""
+    return res[HDR:HDR + L]
+
+
+def result_rows(res, L: int, K: int):
+    """The first K candidate rows [K, REC] of a packed result (a view)."""
+    return res[HDR + L:result_len(L, K)].reshape(K, REC)
+
+
+def read_header(res) -> Tuple[int, int]:
+    """(n_mm, K) from a packed result or its header (numpy or CPU tensor);
+    raises if the kernel found the spans out of order."""
+    if int(res[H_ERR]):
+        raise ValueError("the tile's spans are not sorted by span_ref: the "
+                         "CUDA tile kernel needs SpanIndex order")
+    return int(res[H_NMM]), int(res[H_K])
+
+
+def split_rows(rows, copy) -> dict:
+    """The candidate dict of ``rows`` [K, REC] (torch or numpy): pos, the
+    [4, K] channels and the [K] statistics, each a view of ``rows`` passed
+    through ``copy``."""
+    out = {"pos": copy(rows[:, 0])}
+    r = 1
     for k in _CHANNELS:
-        cand[k] = torch.empty((NT, K), dtype=i32, device=dev)
-    for k in CAND_KEYS[5:]:
-        cand[k] = torch.empty(K, dtype=i32, device=dev)
-    _build.check(lib, lib.gt_tile_compact(
-        *targs, tally.data_ptr(), flag.data_ptr(), block_off.data_ptr(),
-        *(cand[k].data_ptr() for k in CAND_KEYS), K, stream),
-        "tile_compact")
-    _build.LAUNCHES["tile_accumulate"] += 1
-    return base_tot, n_mm, cand
+        out[k] = copy(rows[:, r:r + NT].T)
+        r += NT
+    for k in _SCALARS:
+        out[k] = copy(rows[:, r])
+        r += 1
+    return out
+
+
+def unpack_rows(rows: np.ndarray, t0: int = 0) -> dict:
+    """The candidate dict of numpy ``rows`` [K, REC] in C-ordered arrays
+    of its own, never views of ``rows`` (a row of one candidate is already
+    contiguous): pos int64 plus ``t0``, the statistics in the rows'
+    dtype."""
+    cand = split_rows(rows, lambda x: np.array(x, order="C"))
+    cand["pos"] = cand["pos"].astype(np.int64) + t0
+    return cand
+
+
+def merge_cands(parts) -> dict:
+    """The candidate dicts of consecutive ranges, concatenated in order."""
+    if not parts:
+        return dict(_EMPTY)
+    out = {"n": int(sum(len(p["pos"]) for p in parts))}
+    for k in CAND_KEYS:
+        out[k] = np.concatenate([p[k] for p in parts],
+                                axis=1 if k in _CHANNELS else 0)
+    return out
+
+
+def tile_launch(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
+                min_snv: int, name_len_cap: int = NAME_LEN_CAP
+                ) -> torch.Tensor:
+    """Enqueue one tile's accumulate + screen and return its packed result
+    (int32: header, base_tot, candidate rows) on the tile's device, without
+    waiting for it: the CUDA kernel for CUDA tensors, ``tile_kernel_plain``
+    (packed) for CPU tensors."""
+    kind = t.cum.device.type
+    if kind == "cuda":
+        with torch.cuda.device(t.cum.device):
+            res = _tile_launch_cuda(t, thr, min_mapq, min_bq, min_snv,
+                                    name_len_cap)
+        _build.LAUNCHES["tile_accumulate"] += 1
+        return res
+    if kind == "cpu":
+        return pack_result(*tile_kernel_plain(t, thr, min_mapq, min_bq,
+                                              min_snv, name_len_cap))
+    raise ValueError("tile_kernel runs on cuda or cpu tensors, not %s" % kind)
 
 
 def tile_kernel(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
                 min_snv: int, name_len_cap: int = NAME_LEN_CAP):
-    """One tile's accumulate + screen: the CUDA kernel for CUDA tensors,
-    ``tile_kernel_plain`` for CPU tensors."""
-    kind = t.cum.device.type
-    if kind == "cuda":
-        with torch.cuda.device(t.cum.device):
-            return _tile_kernel_cuda(t, thr, min_mapq, min_bq, min_snv,
-                                     name_len_cap)
-    if kind == "cpu":
+    """One tile's accumulate + screen, unpacked as ``tile_kernel_plain``
+    returns it (base_tot int32 [L], n_mm, cand): the CUDA kernel for CUDA
+    tensors (one sync, to read the header), ``tile_kernel_plain`` for CPU
+    tensors."""
+    if t.cum.device.type == "cpu":
         return tile_kernel_plain(t, thr, min_mapq, min_bq, min_snv,
                                  name_len_cap)
-    raise ValueError("tile_kernel runs on cuda or cpu tensors, not %s" % kind)
+    res = tile_launch(t, thr, min_mapq, min_bq, min_snv, name_len_cap)
+    n_mm, K = read_header(result_header(res).cpu())
+    L = int(t.chrom_up.shape[0])
+    # views of the result rows; pos as int64, as the plain version has it
+    cand = split_rows(result_rows(res, L, K), lambda x: x)
+    cand["pos"] = cand["pos"].to(torch.int64)
+    return result_base_tot(res, L), n_mm, cand
+
+
+def tile_pass_ms(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
+                 min_snv: int, name_len_cap: int = NAME_LEN_CAP) -> dict:
+    """Card milliseconds of each pass of one CUDA launch of the tile
+    (CUDA events between the passes); a measurement, not counted in
+    ``LAUNCHES``."""
+    ms = np.zeros(2, np.float32)
+    with torch.cuda.device(t.cum.device):
+        _tile_launch_cuda(t, thr, min_mapq, min_bq, min_snv, name_len_cap,
+                          pass_ms=ms)
+    return {"tile_window": float(ms[0]), "tile_compact": float(ms[1])}
 
 
 _EMPTY = {"n": 0, "pos": np.empty(0, np.int64),
@@ -391,6 +522,35 @@ class TorchAccumulator:
 
     def __init__(self, device):
         self.device = torch.device(device)
+        self._k_guess = K_GUESS
+        self._host: Optional[torch.Tensor] = None
+
+    def _fetch(self, res: torch.Tensor, L: int, t0: int = 0):
+        """(base_tot, n_mm, candidate dict or None) of a tile's packed
+        result, candidate positions plus ``t0``: for a CUDA result one copy
+        of the header, base_tot and the first ``_k_guess`` candidate rows
+        into this accumulator's pinned buffer, then the one sync of the
+        tile (a second copy only for more rows than that). base_tot may be
+        a view of that buffer, valid until the next fetch; the candidate
+        dict owns its arrays."""
+        if res.device.type == "cpu":
+            arr = res.numpy()
+        else:
+            n0 = min(res.numel(), result_len(L, self._k_guess))
+            if self._host is None or self._host.numel() < n0:
+                self._host = torch.empty(n0, dtype=torch.int32,
+                                         pin_memory=True)
+            self._host[:n0].copy_(res[:n0], non_blocking=True)
+            torch.cuda.current_stream(res.device).synchronize()
+            arr = self._host.numpy()[:n0]
+            K = read_header(arr)[1]
+            if result_len(L, K) > n0:
+                arr = np.concatenate(
+                    [arr, res[n0:result_len(L, K)].cpu().numpy()])
+            self._k_guess = max(self._k_guess, 2 * K)
+        n_mm, K = read_header(arr)
+        cand = unpack_rows(result_rows(arr, L, K), t0) if K else None
+        return result_base_tot(arr, L), n_mm, cand
 
     def run(self, chrom: np.ndarray, batch, eligible: np.ndarray, cfg,
             gate: np.ndarray, lo: int = 0, hi: int = 0,
@@ -425,18 +585,10 @@ class TorchAccumulator:
                                self.device)
             if tile is None:
                 continue
-            bt, _, cand = tile_kernel(tile, thr, cfg.min_mapq,
-                                      cfg.min_base_qual, cfg.min_snv)
-            base_tot[t0 - base_tot_base:t1 - base_tot_base] = \
-                bt.cpu().numpy()
-            if cand["pos"].numel():
-                p = {k: v.cpu().numpy() for k, v in cand.items()}
-                p["pos"] = p["pos"] + t0
-                parts.append(p)
-        if not parts:
-            return base_tot, dict(_EMPTY)
-        dev = {"n": int(sum(len(p["pos"]) for p in parts))}
-        for k in CAND_KEYS:
-            dev[k] = np.concatenate([p[k] for p in parts],
-                                    axis=1 if k in _CHANNELS else 0)
-        return base_tot, dev
+            res = tile_launch(tile, thr, cfg.min_mapq, cfg.min_base_qual,
+                              cfg.min_snv)
+            bt, _, cand = self._fetch(res, t1 - t0, t0)
+            base_tot[t0 - base_tot_base:t1 - base_tot_base] = bt
+            if cand is not None:
+                parts.append(cand)
+        return base_tot, merge_cands(parts)

@@ -12,8 +12,10 @@ beside it — and both are held to the host engine's bits:
   totals of every (seed, outer class), accumulated sequentially in f64,
   returned packed in one int64 [5, NS] tensor (``unpack_outcomes``).
 * ``null_model``: per-length null window stdev, held to the host's
-  ``call/cnv.py:_null_window_model`` (sequential per-segment prefixes and
-  one owner per window length; no float atomics).
+  ``call/cnv.py:_null_window_model`` (sequential per-segment prefixes, the
+  host's carry chain and one owner per window length; no float atomics),
+  in batches of ``NULL_BATCH`` segments on the card with no host round
+  trip between them.
 
 ``window_scan`` is the host outer walk of grom_tpu's ``window_scan_device``
 (seed acceptance order, jumps, slide, trim) over ``seed_eval``'s outcomes.
@@ -31,6 +33,10 @@ import torch
 from grom_tpu_torch import _build
 
 _BLOCK = 256
+# segments per batch of the CUDA null model: its scratch is about
+# 12 * NULL_BATCH * maxw bytes (123 MB at maxw = 10,000), whatever the
+# chromosome's length
+NULL_BATCH = 1024
 
 
 def build_bin_matrix(hi_arr: List[np.ndarray], lo_arr: List[np.ndarray],
@@ -116,8 +122,9 @@ def _lib() -> ctypes.CDLL:
                 [P] * 3 + [Lg, Lg, Lg, D, Lg, P, P, Lg, P, P, P])
     lib.gt_seed_scratch_bytes.restype = Lg
     lib.gt_seed_scratch_bytes.argtypes = [Lg]
-    _build.bind(lib, "gt_null_prefix", [P] * 4 + [Lg, Lg] + [P] * 5)
-    _build.bind(lib, "gt_null_accum", [P] * 6 + [Lg, Lg, Lg, P, P, P])
+    lib.gt_null_scratch_bytes.restype = Lg
+    lib.gt_null_scratch_bytes.argtypes = [Lg, Lg]
+    _build.bind(lib, "gt_null_model", [P] * 3 + [Lg] * 4 + [P] * 4)
     return lib
 
 
@@ -671,7 +678,7 @@ def _finish(sums: np.ndarray, counts: np.ndarray, minw: int) -> np.ndarray:
 
 
 def null_model_plain(z, gate, seg: NullSegments, minw: int, maxw: int,
-                     batch: int = 1024) -> np.ndarray:
+                     batch: int = NULL_BATCH) -> np.ndarray:
     """Null window stdev in plain torch: per segment, the sequential prefix
     of gated z (``torch.cumsum``, sequential on the CPU) and of counts; per
     length, squared window means added in segment order. Returns f64
@@ -709,50 +716,55 @@ def null_model_plain(z, gate, seg: NullSegments, minw: int, maxw: int,
     return _finish(sums.cpu().numpy(), counts.cpu().numpy(), minw)
 
 
+def _segment_rows(seg: NullSegments, device) -> torch.Tensor:
+    """The segments as one int64 [4, S] tensor (start, length, carried
+    window length, reset) on ``device``: one upload."""
+    return torch.from_numpy(np.stack([seg.s, seg.n, seg.w,
+                                      seg.reset.astype(np.int64)])).to(device)
+
+
 def _null_model_cuda(z, gate, seg: NullSegments, minw: int, maxw: int,
-                     batch: int = 1024) -> np.ndarray:
+                     batch: int, pass_ms=None) -> np.ndarray:
     dev = z.device
     _require("z", z, torch.float64, dev)
     _require("gate", gate, torch.bool, dev)
     lib = _lib()
-    stream = _build.stream_ptr(dev)
-    sums = torch.zeros(maxw + 1, dtype=torch.float64, device=dev)
-    counts = torch.zeros(maxw + 1, dtype=torch.int64, device=dev)
     S = len(seg.s)
-    B = min(batch, max(S, 1))
-    pz = torch.empty((B, maxw), dtype=torch.float64, device=dev)
-    pc = torch.empty((B, maxw), dtype=torch.int32, device=dev)
-    seg_z = torch.empty(B, dtype=torch.float64, device=dev)
-    seg_c = torch.empty(B, dtype=torch.int64, device=dev)
-    run = [0.0, 0]
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    for b0 in range(0, S, B):
-        b1 = min(b0 + B, S)
-        nb = b1 - b0
-        s_d, n_d, w_d = (to(seg.s[b0:b1]), to(seg.n[b0:b1]),
-                         to(seg.w[b0:b1]))
-        _build.check(lib, lib.gt_null_prefix(
-            z.data_ptr(), gate.data_ptr(), s_d.data_ptr(), n_d.data_ptr(),
-            nb, maxw, pz.data_ptr(), pc.data_ptr(), seg_z.data_ptr(),
-            seg_c.data_ptr(), stream), "null_prefix")
-        tot0, cnt0 = _carries(seg, b0, b1, seg_z[:nb].cpu().numpy(),
-                              seg_c[:nb].cpu().numpy(), run)
-        t_d, c_d = to(tot0), to(cnt0)
-        _build.check(lib, lib.gt_null_accum(
-            pz.data_ptr(), pc.data_ptr(), n_d.data_ptr(), w_d.data_ptr(),
-            t_d.data_ptr(), c_d.data_ptr(), nb, minw, maxw, sums.data_ptr(),
-            counts.data_ptr(), stream), "null_accum")
-    _build.LAUNCHES["null_model"] += 1
-    return _finish(sums.cpu().numpy(), counts.cpu().numpy(), minw)
+    B = max(1, min(batch, S))
+    segs = _segment_rows(seg, dev)
+    scratch = torch.empty(lib.gt_null_scratch_bytes(B, maxw),
+                          dtype=torch.uint8, device=dev)
+    out = torch.empty((2, maxw + 1), dtype=torch.int64, device=dev)
+    _build.check(lib, lib.gt_null_model(
+        z.data_ptr(), gate.data_ptr(), segs.data_ptr(), S, minw, maxw, B,
+        scratch.data_ptr(), out.data_ptr(),
+        None if pass_ms is None else pass_ms.ctypes.data,
+        _build.stream_ptr(dev)), "null_model")
+    out = out.cpu()                    # the one copy back
+    return _finish(out[0].view(torch.float64).numpy(), out[1].numpy(), minw)
+
+
+def null_pass_ms(z, gate, seg: NullSegments, minw: int, maxw: int,
+                 batch: int = NULL_BATCH) -> dict:
+    """Card milliseconds of each pass of one CUDA null model, summed over
+    its batches (CUDA events between the launches); a measurement, not
+    counted in ``LAUNCHES``."""
+    ms = np.zeros(3, np.float32)
+    with torch.cuda.device(z.device):
+        _null_model_cuda(z, gate, seg, minw, maxw, batch, pass_ms=ms)
+    return {"null_prefix": float(ms[0]), "null_carry": float(ms[1]),
+            "null_accum": float(ms[2])}
 
 
 def null_model(z, gate, seg: NullSegments, minw: int, maxw: int,
-               batch: int = 1024) -> np.ndarray:
+               batch: int = NULL_BATCH) -> np.ndarray:
     """Per-length null window stdev, f64 [maxw + 1] (numpy), from the
-    per-base z (f64) and gate (bool) tensors: the CUDA kernel for CUDA
-    tensors, ``null_model_plain`` for CPU tensors. Bitwise equal to the
-    host's ``_null_window_model``."""
+    per-base z (f64) and gate (bool) tensors, ``batch`` segments at a
+    time: the CUDA kernel for CUDA tensors, ``null_model_plain`` for CPU
+    tensors. Bitwise equal to the host's ``_null_window_model``."""
     if _dispatch(z, "null_model") == "cuda":
         with torch.cuda.device(z.device):
-            return _null_model_cuda(z, gate, seg, minw, maxw, batch)
+            res = _null_model_cuda(z, gate, seg, minw, maxw, batch)
+        _build.LAUNCHES["null_model"] += 1
+        return res
     return null_model_plain(z, gate, seg, minw, maxw, batch)

@@ -5,7 +5,8 @@ the same values) go through these converters:
 
 * ``tile_from_args``: a tile's padded argument tuple, as
   ``__graft_entry__.tile_args_from_fixture`` builds it for
-  ``tile_kernel_core``, with the pads stripped to runtime sizes;
+  ``tile_kernel_core``, with the pads stripped to runtime sizes and
+  packed into one buffer as ``tile_inputs`` packs a tile;
 * ``cnv_tables``: the CNV bin matrix, ``bin_len``, ``ave``, ``std`` and the
   pval2sd table, checked for the order the kernels' binary searches need;
 * ``cell_deltas``: one mesh cell's slice of the rd endpoint deltas
@@ -22,8 +23,8 @@ from typing import Tuple
 
 import numpy as np
 
-from grom_tpu_torch.ops.accumulate import (TileInputs, screen_threshold,
-                                            to_device)
+from grom_tpu_torch.ops.accumulate import (TileInputs, pack_tile,
+                                            screen_threshold, to_device)
 from grom_tpu_torch.ops.cnv_device import CnvTables
 from grom_tpu_torch.ops.sv_device import ENTRY_KEYS, SvTables
 
@@ -41,23 +42,12 @@ def tile_from_args(args: tuple, statics: dict, device
     L = int(np.argmax(chrom_up == 0))
     Q = int(min(len(seq), (seq_off[:R].astype(np.int64)
                            + lseq[:R].astype(np.int64)).max())) if R else 0
-    t = TileInputs(
-        span_read=to_device(span_read[:S], np.int32, device),
-        span_ref=to_device(span_ref[:S], np.int32, device),
-        span_off=to_device(span_off[:S], np.int32, device),
-        cum=to_device(cum[:S + 1], np.int32, device),
-        elig=to_device(elig[:R], np.uint8, device),
-        mapq=to_device(mapq[:R], np.uint8, device),
-        flag=to_device(flag[:R], np.int32, device),
-        lseq=to_device(lseq[:R], np.int32, device),
-        seq_off=to_device(seq_off[:R], np.int32, device),
-        name_id=to_device(name_id[:R], np.int32, device),
-        name_len=to_device(name_len[:R], np.uint8, device),
-        seq=to_device(seq[:Q], np.uint8, device),
-        qual=to_device(qual[:Q], np.uint8, device),
-        chrom_up=to_device(chrom_up[:L], np.uint8, device),
-        is_n=to_device(is_n[:L], np.bool_, device),
-        gate=to_device(gate[:L], np.uint8, device))
+    t = pack_tile(dict(
+        span_read=span_read[:S], span_ref=span_ref[:S], span_off=span_off[:S],
+        cum=cum[:S + 1], elig=elig[:R], mapq=mapq[:R], flag=flag[:R],
+        lseq=lseq[:R], seq_off=seq_off[:R], name_id=name_id[:R],
+        name_len=name_len[:R], seq=seq[:Q], qual=qual[:Q],
+        chrom_up=chrom_up[:L], is_n=is_n[:L], gate=gate[:L]), device)
     params = dict(thr=screen_threshold(float(min_ratio)),
                   min_mapq=statics["min_mapq"], min_bq=statics["min_bq"],
                   min_snv=statics["min_snv"],

@@ -6,8 +6,10 @@ A range is cut into cells of ``seg_l`` positions; each launch processes
 ``n_dp * n_sp`` consecutive cells, one per grid cell (parallel/mesh.py).
 Per cell, on the cell's device:
 
-* the tile kernel (``ops/accumulate.py tile_kernel``) over the cell's spans,
-  clipped at the cell edges;
+* the tile kernel (``ops/accumulate.py tile_launch``) over the cell's spans,
+  clipped at the cell edges, enqueued without a wait: its base_tot, its
+  candidate count and its rows stay on the card until the launch's
+  gathers;
 * K5 ``rd_scatter`` over the endpoint deltas the cell owns (+w at a span's
   clipped start, -w at its clipped end, owned by the cell holding the
   position), returning the cell's delta totals.
@@ -22,8 +24,8 @@ returns the whole result.
 
 Chunked calls (``lo``/``hi``) carry nothing between them: spans are clipped
 to [lo, hi), so each call rebuilds the absolute depth of its range from
-zero. Tile outputs are sized by a count pass, so there is no overflow and no
-``None`` return.
+zero. Tile outputs are bounded by the cell's width, so there is no overflow
+and no ``None`` return.
 """
 
 from __future__ import annotations
@@ -35,16 +37,16 @@ import torch
 import torch.distributed as dist
 
 from grom_tpu_torch.ops import accumulate, rd_depth
-from grom_tpu_torch.ops.accumulate import (_CHANNELS, _EMPTY, CAND_KEYS,
-                                            SpanIndex, screen_threshold,
-                                            tile_inputs)
+from grom_tpu_torch.ops.accumulate import (SpanIndex, merge_cands,
+                                            read_header, result_base_tot,
+                                            result_header, result_rows,
+                                            screen_threshold, tile_inputs,
+                                            unpack_rows)
 from grom_tpu_torch.ops.state import cell_deltas
 from grom_tpu_torch.parallel.mesh import (Mesh, current_group, make_mesh,
                                           visible_cuda_devices)
 
 HIST_BINS = rd_depth.HIST_BINS
-_SCALARS = CAND_KEYS[1 + len(_CHANNELS):]
-_PACK_ROWS = 1 + 4 * len(_CHANNELS) + len(_SCALARS)
 
 
 def _pow2(n: int, floor: int = 8) -> int:
@@ -190,7 +192,7 @@ class MeshAccumulator:
             w_last = launch[-1][1] - launch[-1][0]
             carry = rd[len(launch) - 1, :, w_last - 1].astype(np.int32)
             hist += h
-        return base_tot, self._merge_cands(cand_parts), \
+        return base_tot, merge_cands(cand_parts), \
             (rd_mq, rd_hi, rd_lo), hist
 
     def _launch(self, launch, seg_l: int, carry: np.ndarray, prep: dict):
@@ -199,13 +201,13 @@ class MeshAccumulator:
         candidate dicts or None), gathered on every process."""
         m = self.mesh
         coll = self.coll
-        i32, i64 = torch.int32, torch.int64
+        i32 = torch.int32
         k0 = m.first_cell
         mine = launch[k0:k0 + m.n_local]     # pad cells have no entry
         cfg = prep["cfg"]
         lo = prep["lo"]
 
-        tots, deltas, bts, cands = [], [], [], []
+        tots, deltas, results = [], [], []
         for k, dev in enumerate(m.devices):
             if k >= len(mine):
                 tots.append(torch.zeros(3, dtype=i32, device=coll))
@@ -217,18 +219,13 @@ class MeshAccumulator:
                 prep["gate_u8"][t0 - prep["gate_base"]:
                                 t1 - prep["gate_base"]], dev)
             # a cell with no spans may still own end deltas
-            if tile is None:
-                bt, cand = torch.zeros(t1 - t0, dtype=i32, device=dev), None
-            else:
-                bt, _, cand = accumulate.tile_kernel(
-                    tile, prep["thr"], cfg.min_mapq, cfg.min_base_qual,
-                    cfg.min_snv)
+            results.append(None if tile is None else accumulate.tile_launch(
+                tile, prep["thr"], cfg.min_mapq, cfg.min_base_qual,
+                cfg.min_snv))
             delta, tot = rd_depth.rd_scatter(
                 *cell_deltas(*prep["deltas"], t0, t1, dev), seg_l)
             tots.append(tot.to(coll))
             deltas.append(delta)
-            bts.append(bt)
-            cands.append(cand)
 
         # ---- cross-cell carry -------------------------------------------
         tot_all = self._gather(torch.stack(tots))               # [n, 3]
@@ -238,68 +235,40 @@ class MeshAccumulator:
         bt_out = torch.zeros((m.n_local, seg_l), dtype=i32, device=coll)
         rd_out = torch.zeros((m.n_local, 3, seg_l), dtype=i32, device=coll)
         hist = torch.zeros(HIST_BINS, dtype=i32, device=coll)
+        # each cell's result header, read with the gathers
+        head = torch.zeros((m.n_local, accumulate.HDR), dtype=i32,
+                           device=coll)
         for k, (t0, t1) in enumerate(mine):
             dev = m.devices[k]
             rd, h = rd_depth.rd_scan(deltas[k], base[k0 + k].to(dev),
                                      t1 - t0)
             rd_out[k] = rd.to(coll)
-            bt_out[k, :t1 - t0] = bts[k].to(coll)
             hist += h.to(coll)
+            if results[k] is not None:
+                bt_out[k, :t1 - t0] = result_base_tot(results[k],
+                                                      t1 - t0).to(coll)
+                head[k] = result_header(results[k]).to(coll)
         hist = self._all_reduce(hist)
         bt_all = self._gather(bt_out).cpu().numpy()
         rd_all = self._gather(rd_out).cpu().numpy()
 
         # ---- candidates: counts, then rows padded to the largest -------
-        counts = torch.tensor([c["pos"].numel() if c is not None else 0
-                               for c in cands]
-                              + [0] * (m.n_local - len(cands)),
-                              dtype=i64, device=coll)
-        counts = self._gather(counts).cpu().numpy()
-        K = int(counts.max()) if len(counts) else 0
+        counts = [read_header(h)[1] for h in self._gather(head).cpu().numpy()]
+        K = max(counts, default=0)
         out: List[Optional[dict]] = [None] * len(launch)
         if K:
-            packed = torch.zeros((m.n_local, _PACK_ROWS, K), dtype=i64,
+            packed = torch.zeros((m.n_local, K, accumulate.REC), dtype=i32,
                                  device=coll)
-            for k, c in enumerate(cands):
-                if c is not None and c["pos"].numel():
-                    packed[k, :, :c["pos"].numel()] = _pack(c).to(coll)
+            for k, res in enumerate(results):
+                n = counts[k0 + k]
+                if n:
+                    packed[k, :n] = result_rows(res, mine[k][1] - mine[k][0],
+                                                n).to(coll)
             packed = self._gather(packed).cpu().numpy()
             for i, (t0, _) in enumerate(launch):
                 if counts[i]:
-                    out[i] = _unpack(packed[i, :, :counts[i]], t0)
+                    out[i] = unpack_rows(packed[i, :counts[i]], t0)
         return bt_all, rd_all, hist.cpu().numpy().astype(np.int64), out
-
-    @staticmethod
-    def _merge_cands(cand_parts: List[dict]) -> dict:
-        if not cand_parts:
-            return dict(_EMPTY)
-        dev = {"n": int(sum(len(p["pos"]) for p in cand_parts))}
-        for k in CAND_KEYS:
-            dev[k] = np.concatenate([p[k] for p in cand_parts],
-                                    axis=1 if k in _CHANNELS else 0)
-        return dev
-
-
-def _pack(cand: dict) -> torch.Tensor:
-    """A cell's candidate dict as int64 rows [_PACK_ROWS, K]: pos, the four
-    [4, K] channels, the seven scalar statistics (CAND_KEYS order)."""
-    i64 = torch.int64
-    rows = [cand["pos"].to(i64)[None]]
-    rows += [cand[k].to(i64) for k in _CHANNELS]
-    rows += [cand[k].to(i64)[None] for k in _SCALARS]
-    return torch.cat(rows)
-
-
-def _unpack(rows: np.ndarray, t0: int) -> dict:
-    out = {"pos": rows[0] + t0}
-    r = 1
-    for k in _CHANNELS:
-        out[k] = rows[r:r + 4].astype(np.int32)
-        r += 4
-    for k in _SCALARS:
-        out[k] = rows[r].astype(np.int32)
-        r += 1
-    return out
 
 
 _MESH_ACC: dict = {}

@@ -353,6 +353,67 @@ def test_null_model_matches_host(stage, field):
     assert np.allclose(jx, host, rtol=1e-9, atol=1e-12)
 
 
+def _host_null_model(stage, z, gate):
+    """grom_tpu's host ``_null_window_model`` on ``z`` with a gate that
+    reproduces ``gate`` exactly (the host derives it from low_acgt, nwin,
+    mq and gc)."""
+    from grom_tpu.call.cnv import _null_window_model
+    L = stage.L
+    return _null_window_model(
+        types.SimpleNamespace(lowvar_blocks=stage.prep.lowvar_blocks), None,
+        np.zeros(L, np.int16), np.zeros(L, np.int64),
+        np.full((2, stage.cfg.num_gc_bins), 2), (~gate.numpy()).astype(np.int8),
+        z.numpy(), stage.cfg, L)
+
+
+@pytest.mark.parametrize("batch", [1, 7])
+def test_null_model_small_batches_match_host(stage, batch):
+    """Batches far smaller than the segment count (the CUDA kernel's
+    batches of NULL_BATCH, and its carry kept across them): the carries
+    cross many batch edges and resets, and the result stays bitwise equal
+    to the host's."""
+    (z, gate, seg, minw, maxw), _, _ = stage.rec["null_model"][0]
+    assert len(seg.s) > 10 * batch and seg.reset[1:].any()
+    got = cnv_device.null_model(z, gate, seg, minw, maxw, batch=batch)
+    assert np.array_equal(_bits(got), _bits(_host_null_model(stage, z,
+                                                             gate)))
+
+
+def test_null_carries_match_host_chain():
+    """``_carries``, the chain the card's ``null_carry`` pass runs batch by
+    batch from a running state, against the host loop's carry rule
+    (call/cnv.py _null_window_model: tot0 = float(zc[-1]) carried across
+    phases, zeroed where a window completes or a block starts), over
+    batches of 1, 5 and all segments."""
+    rng = np.random.default_rng(5)
+    S = 400
+    w = np.where(rng.random(S) < 0.3, 0, rng.integers(1, 50, S))
+    w[0] = 0
+    seg = cnv_device.NullSegments(np.zeros(S, np.int64), np.ones(S, np.int64),
+                                  w.astype(np.int64), w == 0)
+    seg_z = rng.normal(0.0, 3.0, S)
+    seg_z[rng.random(S) < 0.05] = -0.0
+    seg_c = rng.integers(0, 10_000, S)
+    want_t, want_c = np.zeros(S), np.zeros(S, np.int64)
+    tot0, cnt0 = 0.0, 0
+    for i in range(S):
+        if seg.reset[i]:
+            tot0, cnt0 = 0.0, 0
+        want_t[i], want_c[i] = tot0, cnt0
+        tot0 = float(tot0 + seg_z[i])
+        cnt0 = int(cnt0 + seg_c[i])
+    for batch in (1, 5, S):
+        run = [0.0, 0]
+        parts = [cnv_device._carries(seg, b0, min(b0 + batch, S),
+                                     seg_z[b0:b0 + batch],
+                                     seg_c[b0:b0 + batch], run)
+                 for b0 in range(0, S, batch)]
+        got_t = np.concatenate([p[0] for p in parts])
+        got_c = np.concatenate([p[1] for p in parts])
+        assert np.array_equal(_bits(got_t), _bits(want_t))
+        assert np.array_equal(got_c, want_c)
+
+
 @pytest.mark.parametrize("kernel", ["zscores", "seed_eval", "null_model"])
 def test_cnv_wrappers_reject_other_devices(stage, kernel):
     """A wrapper runs its kernel on CUDA tensors, its plain version on CPU
@@ -382,6 +443,37 @@ def test_cnv_stage_emits_calls(stage):
 
 
 @pytest.mark.cuda
+def test_null_model_cuda_no_round_trip_between_batches(stage):
+    """On the card, with torch's sync debug mode warning: the null model
+    makes as many host syncs in batches of 7 segments (dozens of
+    batches) as in one batch: two, the segments' upload and the one copy
+    back. (torch's one-time notice that the debug mode is a prototype is
+    not a sync.)"""
+    import warnings
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (z, gate, seg, minw, maxw), _, want = stage.rec["null_model"][0]
+    z, gate = z.cuda(), gate.cuda()
+    syncs = []
+    for batch in (7, len(seg.s)):
+        cnv_device.null_model(z, gate, seg, minw, maxw, batch=batch)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = cnv_device.null_model(z, gate, seg, minw, maxw,
+                                            batch=batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        assert np.array_equal(_bits(got), _bits(want))
+        syncs.append(len([w for w in seen if "called a synchronizing CUDA "
+                          "operation" in str(w.message)]))
+    assert syncs == [2, 2]
+    assert len(seg.s) > 20 * 7
+
+
+@pytest.mark.cuda
 def test_cnv_kernels_cuda_match_plain(stage):
     """On the card: each CUDA kernel, fed the stage's recorded inputs,
     equals the plain version's CPU output bitwise."""
@@ -394,8 +486,9 @@ def test_cnv_kernels_cuda_match_plain(stage):
     got = cnv_device.zscores(*(cu(x) for x in a))
     assert np.array_equal(_bits(got.cpu()), _bits(want))
     a, _, want = stage.rec["null_model"][0]
-    got = cnv_device.null_model(*(cu(x) for x in a))
-    assert np.array_equal(_bits(got), _bits(want))
+    for batch in (cnv_device.NULL_BATCH, 7):
+        got = cnv_device.null_model(*(cu(x) for x in a), batch=batch)
+        assert np.array_equal(_bits(got), _bits(want))
     calls = stage.rec["seed_eval"]
     longest = max(calls, key=lambda c: int(c[2][0].sum()))
     tiers = (_tier_seed_inputs(), None,

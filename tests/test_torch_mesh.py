@@ -19,7 +19,8 @@ from grom_tpu_torch.config import GromConfig
 from grom_tpu_torch.parallel.mesh import make_mesh
 from grom_tpu_torch.parallel.pipeline import MeshAccumulator
 from test_torch_rd_depth import synthetic_batch
-from test_torch_slice import DATA, DATE, HostConfig, _cfg, _read
+from test_torch_slice import (DATA, DATE, HostConfig, _cfg, _read,
+                              grom_tpu_native)
 
 # one intra-op thread: the suite runs in several worker processes at once,
 # and torch's default of one thread per core would oversubscribe the host
@@ -225,6 +226,7 @@ def test_mesh_engine_matches_grom_tpu_mesh(tmp_path, monkeypatch):
     from grom_tpu.driver import run as run_jax
     from grom_tpu.parallel.mesh import make_mesh as jax_mesh
     from grom_tpu_torch.driver import run
+    grom_tpu_native()          # grom_tpu's mesh needs read-name ids
     monkeypatch.setenv("GROM_TPU_STRICT", "1")
     ref = str(tmp_path / "jax.vcf")
     port = str(tmp_path / "port.vcf")

@@ -42,6 +42,41 @@ def _read(path):
         return f.read()
 
 
+def grom_tpu_native(timeout: float = 300.0):
+    """grom_tpu's native library, loaded in this process; raises if it
+    does not load.
+
+    Without it grom_tpu decodes reads without their name ids, and its
+    device engines then refuse the data. ``grom_tpu.native`` builds the
+    library with an in-place ``make`` that several test processes may run
+    at once, and a process whose first load failed remembers the failure.
+    So: build under a lock file in ``build/`` (grom_tpu's own tests in
+    other processes take no lock, so keep trying to load for a while),
+    and forget a failure cached earlier in this process."""
+    import fcntl
+    import time
+
+    from grom_tpu import native
+    if os.environ.get("GROM_TPU_NO_NATIVE") == "1":
+        raise RuntimeError("GROM_TPU_NO_NATIVE=1: grom_tpu's native library "
+                           "is switched off")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "grom_tpu_native.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        deadline = time.monotonic() + timeout
+        while True:
+            if native._lib is None and native._tried:
+                native._tried = False
+            native._build()
+            lib = native.get_lib()
+            if lib is not None:
+                return lib
+            if time.monotonic() > deadline:
+                raise RuntimeError("grom_tpu's native library (native/, "
+                                   "make) did not load in %.0f s" % timeout)
+            time.sleep(0.5)
+
+
 @pytest.fixture
 def chunked(monkeypatch):
     monkeypatch.setenv("GROM_TPU_CHUNK_BASES", "60000")
