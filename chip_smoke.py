@@ -948,6 +948,7 @@ def phase_real_size_mesh() -> dict:
 
     from grom_tpu_torch import _build
     from grom_tpu_torch.parallel.pipeline import get_mesh_accumulator
+    from grom_tpu_torch.utils import timing
     say("== 6. real size on the mesh engine (one-process NCCL group)")
     args = bulk_args()
     mesh_vcf = os.path.join(OUT, "bulk.mesh.vcf")
@@ -962,15 +963,25 @@ def phase_real_size_mesh() -> dict:
                 or dist.get_backend(mesh.group) != "nccl"):
             raise AssertionError("mesh %s in group %s" % (mesh.shape,
                                                           mesh.group))
+        timing.timing_enable(True)
+        timing.reset()
         with Recorder() as rec, card_profile() as prof:
             _build.reset_launches()
             t_mesh = run_cli(args + ["-o", mesh_vcf], "mesh")
             launches = dict(_build.LAUNCHES)
+        snap = timing.report(file=io.StringIO())
+        timing.timing_enable(False)
         card = device_times(prof)
         same_files(mesh_vcf, os.path.join(OUT, "bulk.host.vcf"))
         say("VCF and .ctx.vcf byte-identical to the host engine's; mesh "
             "engine %.2f s on a %dx%d grid" % ((t_mesh,) + mesh.shape))
         say("launches in the mesh run:", json.dumps(launches))
+        # scan.device of the mesh run in parts (host wall seconds, summed
+        # over the run; the labels of parallel/pipeline.py)
+        say("phases of the mesh run: scan.device %.3f s; in it: %s" % (
+            snap.get("scan.device", (0.0,))[0], ", ".join(
+                "%s %.3f s (x%d)" % (k, v[0], v[5])
+                for k, v in sorted(snap.items()) if k.startswith("mesh."))))
         for k in KERNELS:
             if launches.get(k, 0) <= 0:
                 raise AssertionError("kernel %s was not launched" % k)

@@ -45,6 +45,7 @@ from grom_tpu_torch.ops.accumulate import (SpanIndex, merge_cands,
 from grom_tpu_torch.ops.state import cell_deltas
 from grom_tpu_torch.parallel.mesh import (Mesh, current_group, make_mesh,
                                           visible_cuda_devices)
+from grom_tpu_torch.utils.timing import phase
 
 HIST_BINS = rd_depth.HIST_BINS
 
@@ -155,12 +156,13 @@ class MeshAccumulator:
 
         part = chrom[lo:hi]
         up = np.where(part >= 97, part - 32, part).astype(np.uint8)
+        with phase("mesh.endpoint_deltas"):
+            deltas = endpoint_deltas(batch, eligible, cfg.min_mapq, L, lo, hi)
         prep = dict(
             sindex=SpanIndex(batch), reads=reads,
             elig_u8=eligible.astype(np.uint8), up=up,
             is_n=up == ord("N"), gate_u8=(gate > 0).astype(np.uint8),
-            lo=lo, gate_base=gate_base,
-            deltas=endpoint_deltas(batch, eligible, cfg.min_mapq, L, lo, hi),
+            lo=lo, gate_base=gate_base, deltas=deltas,
             thr=screen_threshold(cfg.min_snv_ratio), cfg=cfg)
 
         base_tot = (base_tot_out if base_tot_out is not None
@@ -179,14 +181,16 @@ class MeshAccumulator:
         for r0 in range(0, n_cells, n):
             launch = cells[r0:r0 + n]
             bt, rd, h, cands = self._launch(launch, seg_l, carry, prep)
-            for i, (t0, t1) in enumerate(launch):
-                w = t1 - t0
-                base_tot[t0 - base_tot_base:t1 - base_tot_base] = bt[i, :w]
-                rd_mq[t0:t1] = rd[i, 0, :w]
-                rd_hi[t0:t1] = rd[i, 1, :w]
-                rd_lo[t0:t1] = rd[i, 2, :w]
-                if cands[i] is not None:
-                    cand_parts.append(cands[i])
+            with phase("mesh.copy_out"):
+                for i, (t0, t1) in enumerate(launch):
+                    w = t1 - t0
+                    base_tot[t0 - base_tot_base:
+                             t1 - base_tot_base] = bt[i, :w]
+                    rd_mq[t0:t1] = rd[i, 0, :w]
+                    rd_hi[t0:t1] = rd[i, 1, :w]
+                    rd_lo[t0:t1] = rd[i, 2, :w]
+                    if cands[i] is not None:
+                        cand_parts.append(cands[i])
             # the next launch's carry: the absolute depth at the last
             # position of this launch's last real cell
             w_last = launch[-1][1] - launch[-1][0]
@@ -213,41 +217,60 @@ class MeshAccumulator:
                 tots.append(torch.zeros(3, dtype=i32, device=coll))
                 continue
             t0, t1 = mine[k]
-            tile = tile_inputs(
-                prep["sindex"], prep["reads"], prep["elig_u8"], t0, t1,
-                prep["up"][t0 - lo:t1 - lo], prep["is_n"][t0 - lo:t1 - lo],
-                prep["gate_u8"][t0 - prep["gate_base"]:
-                                t1 - prep["gate_base"]], dev)
-            # a cell with no spans may still own end deltas
-            results.append(None if tile is None else accumulate.tile_launch(
-                tile, prep["thr"], cfg.min_mapq, cfg.min_base_qual,
-                cfg.min_snv))
-            delta, tot = rd_depth.rd_scatter(
-                *cell_deltas(*prep["deltas"], t0, t1, dev), seg_l)
+            with phase("mesh.tile"):
+                tile = tile_inputs(
+                    prep["sindex"], prep["reads"], prep["elig_u8"], t0, t1,
+                    prep["up"][t0 - lo:t1 - lo],
+                    prep["is_n"][t0 - lo:t1 - lo],
+                    prep["gate_u8"][t0 - prep["gate_base"]:
+                                    t1 - prep["gate_base"]], dev)
+                # a cell with no spans may still own end deltas
+                results.append(None if tile is None
+                               else accumulate.tile_launch(
+                                   tile, prep["thr"], cfg.min_mapq,
+                                   cfg.min_base_qual, cfg.min_snv))
+            with phase("mesh.cell_deltas"):
+                ins = cell_deltas(*prep["deltas"], t0, t1, dev)
+            with phase("mesh.rd_scatter"):
+                delta, tot = rd_depth.rd_scatter(*ins, seg_l)
             tots.append(tot.to(coll))
             deltas.append(delta)
 
         # ---- cross-cell carry -------------------------------------------
-        tot_all = self._gather(torch.stack(tots))               # [n, 3]
-        excl = torch.cumsum(tot_all, 0, dtype=i32) - tot_all
-        base = excl + torch.from_numpy(carry).to(coll)
-
-        bt_out = torch.zeros((m.n_local, seg_l), dtype=i32, device=coll)
-        rd_out = torch.zeros((m.n_local, 3, seg_l), dtype=i32, device=coll)
-        hist = torch.zeros(HIST_BINS, dtype=i32, device=coll)
-        # each cell's result header, read with the gathers
-        head = torch.zeros((m.n_local, accumulate.HDR), dtype=i32,
-                           device=coll)
+        with phase("mesh.carry"):
+            tot_all = self._gather(torch.stack(tots))           # [n, 3]
+            excl = torch.cumsum(tot_all, 0, dtype=i32) - tot_all
+            base = excl + torch.from_numpy(carry).to(coll)
+            bt_out = torch.zeros((m.n_local, seg_l), dtype=i32, device=coll)
+            rd_out = torch.zeros((m.n_local, 3, seg_l), dtype=i32,
+                                 device=coll)
+            hist = torch.zeros(HIST_BINS, dtype=i32, device=coll)
+            # each cell's result header, read with the gathers
+            head = torch.zeros((m.n_local, accumulate.HDR), dtype=i32,
+                               device=coll)
         for k, (t0, t1) in enumerate(mine):
             dev = m.devices[k]
-            rd, h = rd_depth.rd_scan(deltas[k], base[k0 + k].to(dev),
-                                     t1 - t0)
-            rd_out[k] = rd.to(coll)
-            hist += h.to(coll)
-            if results[k] is not None:
-                bt_out[k, :t1 - t0] = result_base_tot(results[k],
-                                                      t1 - t0).to(coll)
-                head[k] = result_header(results[k]).to(coll)
+            with phase("mesh.rd_scan"):
+                rd, h = rd_depth.rd_scan(deltas[k], base[k0 + k].to(dev),
+                                         t1 - t0)
+            with phase("mesh.cell_outputs"):
+                rd_out[k] = rd.to(coll)
+                hist += h.to(coll)
+                if results[k] is not None:
+                    bt_out[k, :t1 - t0] = result_base_tot(results[k],
+                                                          t1 - t0).to(coll)
+                    head[k] = result_header(results[k]).to(coll)
+        with phase("mesh.gathers"):
+            return self._gathers(launch, mine, results, hist, bt_out, rd_out,
+                                 head)
+
+    def _gathers(self, launch, mine, results, hist, bt_out, rd_out, head):
+        """The launch's outputs gathered on every process, as ``_launch``
+        returns them."""
+        m = self.mesh
+        coll = self.coll
+        i32 = torch.int32
+        k0 = m.first_cell
         hist = self._all_reduce(hist)
         bt_all = self._gather(bt_out).cpu().numpy()
         rd_all = self._gather(rd_out).cpu().numpy()
