@@ -34,8 +34,12 @@ non-zero without its result line:
 6. real size on the mesh engine: the same chromosome in a one-process NCCL
    group (its collectives are real NCCL calls on the card), on the 1x1
    grid of one card, byte-identical to phase 5's host output; the launch
-   counts and summed card times of that run; then the depth and SV kernels
-   against their plain versions, bitwise and timed.
+   counts (the tile kernel and K6 at least once per cell, K5 at least once
+   per ``MeshAccumulator.run``), its ``scan.device`` in parts (the
+   ``mesh.*`` labels) and summed card times of that run; then the depth
+   and SV kernels against their plain versions, bitwise and timed, and the
+   depth kernels bitwise on the edge batch (testing/spans.py) run whole
+   and chunked by the mesh engine on the card, equal to the CPU run.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table (each kernel's time beside its bound: the larger of
@@ -88,13 +92,16 @@ KERNEL_FUNCS = {
     "seed_eval": ("seed_eval_tier1", "seed_eval_tier2"),
     "null_model": ("null_prefix", "null_carry", "null_accum"),
     "rd_scatter": ("rd_scatter_kernel",),
-    "rd_scan": ("rd_block_sums", "rd_block_offsets", "rd_block_scan"),
+    "rd_scan": ("rd_scan_kernel",),
     "sv_score": ("sv_score_kernel",),
 }
 # the kernels each engine's main path launches
 TORCH_PATH = ("tile_accumulate", "zscores", "seed_eval", "null_model",
               "sv_score")
 MESH_ONLY = ("rd_scatter", "rd_scan")
+# kernels whose wrappers write into buffers the caller reuses: the Recorder
+# keeps a copy of the arguments of their heaviest call, taken before it
+SNAPSHOT = MESH_ONLY
 
 # (fixture, extra flags, oracle tag); cnvmany is generated, not committed
 FIXTURES = [
@@ -285,16 +292,26 @@ class Recorder:
     """While a run of the port is inside it, keeps for every kernel
     wrapper the arguments of its heaviest call (the most aligned bases of
     a full-width tile, the longest z block, the most window steps, the
-    most null segments, the most deltas of a full-width cell, the widest
-    cell, the most SV entries), so the kernel can then be held to its plain
-    version at the shapes the main path gave it; and the bound of every
-    call (``bound_sum``), summed per kernel."""
+    most null segments, the most spans and cells of a depth-list group,
+    the widest cell, the most SV entries), so the kernel can then be held
+    to its plain version at the shapes the main path gave it; and the bound
+    of every call (``bound_sum``), summed per kernel. The arguments of the
+    ``SNAPSHOT`` kernels are copied before the call, since the run reuses
+    their buffers."""
 
     def __init__(self):
         self.best = {}
         self.bound_sum = {}
         self._saved = {}
         self._later = []         # seed_eval calls: bound read after the run
+
+    @staticmethod
+    def _heavier(name, w, best) -> bool:
+        """Whether a call of weight ``w`` replaces the kept one: K6 keeps
+        the latest of its heaviest calls (a full cell late in a run, so
+        its carry from earlier launches is not zero), the others the
+        first."""
+        return w >= best if name == "rd_scan" else w > best
 
     @staticmethod
     def _weight(name, args, out):
@@ -308,9 +325,9 @@ class Recorder:
         if name == "null_model":
             return (len(args[2].s),)
         if name == "rd_scatter":
-            return (int(args[4]), int(args[0].shape[0]))
+            return (int(args[0].ref.shape[0]), int(args[9].shape[0]))
         if name == "rd_scan":
-            return (int(args[0].shape[1]), int(args[2]))
+            return (int(args[0].shape[1]), int(args[5]))
         return (int(args[0].shape[0]),)
 
     def __enter__(self):
@@ -319,18 +336,23 @@ class Recorder:
             self._saved[name] = (mod, attr, fn)
 
             def wrap(*a, _n=name, _f=fn):
+                kept = a
+                if _n in SNAPSHOT and (_n not in self.best or self._heavier(
+                        _n, self._weight(_n, a, None), self.best[_n][0])):
+                    kept = _clone(a)
                 out = _f(*a)
                 if _n == "seed_eval":
                     self._later.append((a, out))
                 else:
-                    self._add(_n, a, out)
+                    self._add(_n, kept, out)
                 return out
             setattr(mod, attr, wrap)
         return self
 
     def _add(self, name, a, out):
         w = self._weight(name, a, out)
-        if name not in self.best or w > self.best[name][0]:
+        if name not in self.best or self._heavier(name, w,
+                                                  self.best[name][0]):
             self.best[name] = (w, a)
         self.bound_sum[name] = (self.bound_sum.get(name, 0.0)
                                 + bound(name, a, out)[0])
@@ -503,11 +525,15 @@ def bound(name, args, out):
         nb = 9 * _covered(seg.s, ends) + _nbytes(list(seg)) + _nbytes(out)
         ops, rate = 6 * int(seg.n.sum()), F64_OPS_S
     elif name == "rd_scatter":
-        nb = _nbytes(args[:4]) + _nbytes(out)
-        ops, rate = 3 * int(args[0].shape[0]), F32_OPS_S
+        # in: the spans and reads, the slot map; out: the rows, totals and
+        # chunk sums of the group; per span two endpoints of three adds
+        nb = _nbytes(args[:2]) + _nbytes(args[9:12])
+        ops, rate = 6 * int(args[0].ref.shape[0]), F32_OPS_S
     elif name == "rd_scan":
-        nb = _nbytes(args[:2]) + _nbytes(out)
-        ops, rate = 3 * int(args[0].shape[1]) + int(args[2]), F32_OPS_S
+        # in: the cell's rows (its chunk sums, the launch's totals and the
+        # carry: a few hundred bytes); out: rd and the histogram
+        nb = _nbytes(args[:3]) + _nbytes(args[4]) + _nbytes(args[6:])
+        ops, rate = 3 * int(args[0].shape[1]) + int(args[5]), F32_OPS_S
     else:   # sv_score
         n = int(args[0].shape[0])
         tables = args[9]
@@ -529,6 +555,17 @@ def _to(x, device):
         return x.to(device)
     if isinstance(x, tuple):
         vals = [_to(v, device) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _clone(x):
+    """``x`` with every tensor in it (also inside tuples) copied."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        vals = [_clone(v) for v in x]
         return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
     return x
 
@@ -607,7 +644,9 @@ def check_kernels(rec: Recorder, label: str, timed: bool,
                   names=tuple(KERNELS)) -> dict:
     """Each recorded call of the kernels ``names`` against its plain
     version: bitwise against the plain version on CPU copies; with
-    ``timed``, also beside the plain version run on the card."""
+    ``timed``, also beside the plain version run on the card. Both
+    versions start from copies of the recorded arguments (some wrappers
+    write into buffers they are given)."""
     import torch
     results = {}
     for name, (mod, _, attr, plain) in _targets().items():
@@ -618,10 +657,11 @@ def check_kernels(rec: Recorder, label: str, timed: bool,
                                  % (label, name))
         weight, args = rec.best[name]
         kernel = getattr(mod, attr)
-        got = kernel(*args)
+        cpu_args = _to(args, "cpu")
+        got = kernel(*_clone(args))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = PLAIN_ON_CPU[name] = plain(*_to(args, "cpu"))
+        want = PLAIN_ON_CPU[name] = plain(*cpu_args)
         cpu_s = time.perf_counter() - t0
         err, _ = _diff(got, want, exact=True)
         b_ms, b_by, b_bytes, b_ops = bound(name, args, got)
@@ -630,7 +670,7 @@ def check_kernels(rec: Recorder, label: str, timed: bool,
         msg = ("%s %s %s: equal to the plain version on CPU copies "
                "(plain on CPU %.3f s)" % (label, name, weight, cpu_s))
         if timed:
-            on_card = plain(*args)
+            on_card = plain(*_clone(args))
             torch.cuda.synchronize()
             _, rel = _diff(got, on_card, exact=False)
             row["ms"] = _ms(lambda: kernel(*args))
@@ -947,7 +987,9 @@ def phase_real_size_mesh() -> dict:
     import torch.distributed as dist
 
     from grom_tpu_torch import _build
-    from grom_tpu_torch.parallel.pipeline import get_mesh_accumulator
+    from grom_tpu_torch.ops import rd_depth
+    from grom_tpu_torch.parallel.pipeline import (MeshAccumulator,
+                                                  get_mesh_accumulator)
     from grom_tpu_torch.utils import timing
     say("== 6. real size on the mesh engine (one-process NCCL group)")
     args = bulk_args()
@@ -965,17 +1007,28 @@ def phase_real_size_mesh() -> dict:
                                                           mesh.group))
         timing.timing_enable(True)
         timing.reset()
-        with Recorder() as rec, card_profile() as prof:
-            _build.reset_launches()
-            t_mesh = run_cli(args + ["-o", mesh_vcf], "mesh")
-            launches = dict(_build.LAUNCHES)
+        runs = []
+        mesh_run = MeshAccumulator.run
+
+        def counted(self, *a, **kw):
+            runs.append(kw.get("hi", 0) - kw.get("lo", 0))
+            return mesh_run(self, *a, **kw)
+        MeshAccumulator.run = counted
+        try:
+            with Recorder() as rec, card_profile() as prof:
+                _build.reset_launches()
+                t_mesh = run_cli(args + ["-o", mesh_vcf], "mesh")
+                launches = dict(_build.LAUNCHES)
+        finally:
+            MeshAccumulator.run = mesh_run
         snap = timing.report(file=io.StringIO())
         timing.timing_enable(False)
         card = device_times(prof)
         same_files(mesh_vcf, os.path.join(OUT, "bulk.host.vcf"))
         say("VCF and .ctx.vcf byte-identical to the host engine's; mesh "
             "engine %.2f s on a %dx%d grid" % ((t_mesh,) + mesh.shape))
-        say("launches in the mesh run:", json.dumps(launches))
+        say("launches in the mesh run:", json.dumps(launches),
+            "in %d MeshAccumulator.run calls" % len(runs))
         # scan.device of the mesh run in parts (host wall seconds, summed
         # over the run; the labels of parallel/pipeline.py)
         say("phases of the mesh run: scan.device %.3f s; in it: %s" % (
@@ -985,27 +1038,37 @@ def phase_real_size_mesh() -> dict:
         for k in KERNELS:
             if launches.get(k, 0) <= 0:
                 raise AssertionError("kernel %s was not launched" % k)
+        # the tile kernel and K6 at least once per cell, K5 at least once
+        # per run of the mesh (one group per run at this size)
         cells = math.ceil(BULK["length"] / (1 << 18))
-        for k in ("tile_accumulate",) + MESH_ONLY:
+        for k in ("tile_accumulate", "rd_scan"):
             if launches[k] < cells:
                 raise AssertionError("%d %s launches < %d cells"
                                      % (launches[k], k, cells))
+        if not runs or launches["rd_scatter"] < len(runs):
+            raise AssertionError("%d rd_scatter launches < %d mesh runs"
+                                 % (launches["rd_scatter"], len(runs)))
         sums = report_run_sums(card, rec, launches, tuple(KERNELS),
                                "mesh run")
         say("-- kernels against their plain versions (inputs of this run; "
             "tolerance: integers exact, f64 bitwise)")
         res = check_kernels(rec, "mesh real-size", timed=True,
                             names=MESH_ONLY + ("sv_score",))
+        check_rd_scan_terms(rec)
         # no library call computes either function; one call does a part
-        pos, w_mq, n = (rec.best["rd_scatter"][1][i] for i in (0, 1, 4))
-        idx = pos.long()
-        buf = torch.zeros(n, dtype=torch.int32, device=pos.device)
-        delta = rec.best["rd_scan"][1][0]
+        spans, _, lo, hi, L, min_mapq = rec.best["rd_scatter"][1][:6]
+        pos, sign, w_mq, _ = rd_depth.endpoints_plain(spans, lo, hi, L,
+                                                      min_mapq)
+        idx, w_mq = pos - lo, sign * w_mq
+        buf = torch.zeros(hi - lo, dtype=torch.int32, device=pos.device)
+        rows = rec.best["rd_scan"][1][0]
         say("partial yardsticks: index_add_ of one of rd_scatter's three "
-            "channels %.4f ms; torch.cumsum of rd_scan's deltas (no carry, "
-            "no histogram) %.4f ms"
-            % (_ms(lambda: buf.index_add_(0, idx, w_mq)),
-               _ms(lambda: torch.cumsum(delta, 1, dtype=torch.int32))))
+            "channels over the run's %d kept endpoints (found beforehand) "
+            "%.4f ms; torch.cumsum of one cell's delta rows (no carry, no "
+            "histogram) %.4f ms"
+            % (len(idx), _ms(lambda: buf.index_add_(0, idx, w_mq)),
+               _ms(lambda: torch.cumsum(rows, 1, dtype=torch.int32))))
+        check_rd_edges()
         for k, row in res.items():
             row["launches"] = launches[k]
             row["run_ms"], row["run_bound_ms"] = sums[k]
@@ -1013,6 +1076,70 @@ def phase_real_size_mesh() -> dict:
     finally:
         dist.destroy_process_group()
     return res
+
+
+def check_rd_scan_terms(rec: Recorder) -> None:
+    """K6's recorded real-size call has a carry from earlier launches; on
+    a 1x1 grid every cell is cell 0 of its launch, so K6 is held once more
+    on the same rows as cell 2 of a four-cell launch, with seeded totals
+    of the other cells."""
+    import types
+
+    import torch
+    weight, args = rec.best["rd_scan"]
+    rows, csum, tot_all, j, carry_in = args[:5]
+    if not int(carry_in.abs().sum()):
+        raise AssertionError("K6's recorded call has no carry")
+    g = torch.Generator().manual_seed(6)
+    tot4 = torch.randint(-(1 << 20), 1 << 20, (4, 3), generator=g,
+                         dtype=torch.int32).to(tot_all.device)
+    tot4[2] = tot_all[j]
+    check_kernels(types.SimpleNamespace(best={"rd_scan": (
+        weight, (rows, csum, tot4, 2) + tuple(args[4:]))}),
+        "mesh real-size, as cell 2 of 4 (carry %s)"
+        % carry_in.tolist(), timed=False, names=("rd_scan",))
+
+
+def check_rd_edges() -> None:
+    """K5 and K6 bitwise against their plain versions on the edge batch
+    (testing/spans.py: spans ending at a cell's first position, a cell with
+    end deltas and no span, the whole-span rule, a span ending at hi), run
+    by the mesh engine on the card in 1024-base cells: whole on a 2x2 grid
+    (K5 once), and over [1000, 4096) on a 1x1 grid in K5 groups of one
+    launch; each run's outputs equal to the same run on the CPU."""
+    import numpy as np
+
+    from grom_tpu_torch.config import GromConfig
+    from grom_tpu_torch.parallel import pipeline
+    from grom_tpu_torch.parallel.mesh import make_mesh
+    from grom_tpu_torch.testing.spans import EDGE_RANGE, edge_batch
+    chrom, batch, eligible, gate = edge_batch()
+    cfg = GromConfig(bam="", ref_fasta="", out_vcf="")
+    L = len(chrom)
+    group_positions = pipeline.GROUP_POSITIONS
+    for shape, (lo, hi), group in (((2, 2), (0, L), group_positions),
+                                   ((1, 1), EDGE_RANGE, 1024)):
+        n = shape[0] * shape[1]
+
+        def one(dev):
+            acc = pipeline.MeshAccumulator(
+                mesh=make_mesh(*shape, devices=[dev] * n, group=None),
+                seg_l=1024)
+            return acc.run(chrom, batch, eligible, cfg, gate[lo:hi], lo=lo,
+                           hi=hi, base_tot_out=np.zeros(hi - lo, np.int64),
+                           gate_base=lo, base_tot_base=lo)
+        pipeline.GROUP_POSITIONS = group
+        try:
+            with Recorder() as rec:
+                got = one("cuda:0")
+            want = one("cpu")
+        finally:
+            pipeline.GROUP_POSITIONS = group_positions
+        _diff(got, want, exact=True)
+        label = "edge batch %dx%d [%d, %d)" % (shape + (lo, hi))
+        check_kernels(rec, label, timed=False, names=MESH_ONLY)
+        say("%s: the mesh run on the card equals the run on the CPU (rd_hi "
+            "max %d)" % (label, int(got[2][1].max())))
 
 
 def main() -> int:

@@ -95,9 +95,6 @@ _DTYPES = dict(span_read=torch.int32, span_ref=torch.int32,
                seq_off=torch.int32, name_id=torch.int32,
                name_len=torch.uint8, seq=torch.uint8, qual=torch.uint8,
                chrom_up=torch.uint8, is_n=torch.bool, gate=torch.uint8)
-_NP_DTYPES = {k: np.dtype(str(v).replace("torch.", "")) for k, v in
-              _DTYPES.items()}
-
 
 def screen_threshold(min_ratio: float) -> float:
     """The screen's f32 threshold ``min_ratio*(1-1e-3) - 1e-9``, rounded
@@ -151,16 +148,16 @@ class SpanIndex:
                 (t_off + delta)[keep], t_len[keep])
 
 
-def pack_tile(arrays: dict, device) -> TileInputs:
-    """``TileInputs`` on ``device`` from the tile's arrays (numpy, keyed by
-    field name, any integer or bool dtype): packed into one host buffer at
-    16-byte aligned offsets, uploaded in one copy, each field a view of the
-    one buffer. For a CUDA device the host buffer is pinned and the copy is
-    not waited for: torch's caching host allocator hands the pinned block
-    out again only once the copy out of it has finished."""
+def pack_arrays(arrays: dict, dtypes: dict, device) -> dict:
+    """Views on ``device``, keyed as ``dtypes`` (name -> torch dtype), of
+    the numpy ``arrays`` (any integer or bool dtype): packed into one host
+    buffer at 16-byte aligned offsets and uploaded in one copy. For a CUDA
+    device the host buffer is pinned and the copy is not waited for:
+    torch's caching host allocator hands the pinned block out again only
+    once the copy out of it has finished."""
     dev = torch.device(device)
     offs, total = [], 0
-    for name, dt in _DTYPES.items():
+    for name, dt in dtypes.items():
         n = len(arrays[name]) * dt.itemsize
         offs.append((name, total, n))
         total += -(-n // 16) * 16
@@ -169,7 +166,8 @@ def pack_tile(arrays: dict, device) -> TileInputs:
                        pin_memory=dev.type == "cuda")
     hb = host.numpy()
     for name, off, n in offs:
-        hb[off:off + n].view(_NP_DTYPES[name])[:] = arrays[name]
+        np_dt = np.dtype(str(dtypes[name]).replace("torch.", ""))
+        hb[off:off + n].view(np_dt)[:] = arrays[name]
     if dev.type == "cpu":
         buf = host
     elif dev.type == "cuda":
@@ -177,9 +175,15 @@ def pack_tile(arrays: dict, device) -> TileInputs:
             buf = host.to(dev, non_blocking=True)
     else:
         buf = host.to(dev)
+    return {name: buf[off:off + n].view(dtypes[name])
+            for name, off, n in offs}
+
+
+def pack_tile(arrays: dict, device) -> TileInputs:
+    """``TileInputs`` on ``device`` from the tile's arrays (numpy, keyed by
+    field name), in one upload (``pack_arrays``)."""
     cum = np.asarray(arrays["cum"])
-    return TileInputs(**{name: buf[off:off + n].view(_DTYPES[name])
-                         for name, off, n in offs},
+    return TileInputs(**pack_arrays(arrays, _DTYPES, device),
                       n_events=int(cum[-1]),
                       max_span=int(np.diff(cum).max()) if len(cum) > 1 else 0)
 

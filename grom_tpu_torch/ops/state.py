@@ -9,9 +9,11 @@ the same values) go through these converters:
   packed into one buffer as ``tile_inputs`` packs a tile;
 * ``cnv_tables``: the CNV bin matrix, ``bin_len``, ``ave``, ``std`` and the
   pval2sd table, checked for the order the kernels' binary searches need;
+* ``span_inputs``: a run's M-spans and reads as ``rd_scatter`` inputs, in
+  one upload;
 * ``cell_deltas``: one mesh cell's slice of the rd endpoint deltas
-  (parallel/pipeline.py ``endpoint_deltas``), cell-relative, for
-  ``rd_scatter``;
+  (parallel/pipeline.py ``endpoint_deltas``), cell-relative: the host
+  reference that the tests hold ``rd_scatter`` to;
 * ``sv_tables`` / ``sv_entries``: the SV scorer's binomial tables and etype
   index tables, and one window's entry arrays, for ``sv_score``;
 * ``to_device``: any numpy array as a contiguous tensor on a device.
@@ -23,9 +25,11 @@ from typing import Tuple
 
 import numpy as np
 
-from grom_tpu_torch.ops.accumulate import (TileInputs, pack_tile,
-                                            screen_threshold, to_device)
+from grom_tpu_torch.ops.accumulate import (TileInputs, pack_arrays,
+                                            pack_tile, screen_threshold,
+                                            to_device)
 from grom_tpu_torch.ops.cnv_device import CnvTables
+from grom_tpu_torch.ops.rd_depth import SPAN_DTYPES, Spans
 from grom_tpu_torch.ops.sv_device import ENTRY_KEYS, SvTables
 
 
@@ -74,6 +78,15 @@ def cnv_tables(bin_mat: np.ndarray, bin_len: np.ndarray, ave: np.ndarray,
                      std=to_device(np.reshape(std, -1), f64, device),
                      pv_p=to_device(pv_p, f64, device),
                      pv_sd=to_device(pv_sd, f64, device))
+
+
+def span_inputs(batch, eligible: np.ndarray, device) -> Spans:
+    """The batch's M-spans (start, length, read) and its reads' mapq and
+    eligibility as ``rd_scatter`` inputs on ``device``, in one upload
+    (``pack_arrays``: pinned and not waited for on a CUDA device)."""
+    return Spans(**pack_arrays(dict(
+        ref=batch.span_ref, len=batch.span_len, read=batch.span_read,
+        mapq=batch.mapq, elig=eligible), SPAN_DTYPES, device))
 
 
 def cell_deltas(d_pos: np.ndarray, d_mq: np.ndarray, d_hi: np.ndarray,

@@ -4,28 +4,38 @@ genome cells (the counterpart of grom_tpu/parallel/pipeline.py).
 
 A range is cut into cells of ``seg_l`` positions; each launch processes
 ``n_dp * n_sp`` consecutive cells, one per grid cell (parallel/mesh.py).
-Per cell, on the cell's device:
+Each device of the grid is a lane: the cells of each launch it holds. A
+run keeps its buffers on each lane in a ``_LaneRun`` of its own, so runs
+share no buffer. Per run, each lane takes the run's spans and reads in one
+upload (``ops/state.py span_inputs``). Per group of launches
+(all of a run's launches, unless their delta rows would pass
+``GROUP_POSITIONS`` positions a lane), each lane runs K5 ``rd_scatter``
+once: the endpoint deltas, cell totals and chunk sums of every cell it
+holds in the group. Then per launch, per cell, on the cell's device:
 
 * the tile kernel (``ops/accumulate.py tile_launch``) over the cell's spans,
   clipped at the cell edges, enqueued without a wait: its base_tot, its
   candidate count and its rows stay on the card until the launch's
   gathers;
-* K5 ``rd_scatter`` over the endpoint deltas the cell owns (+w at a span's
-  clipped start, -w at its clipped end, owned by the cell holding the
-  position), returning the cell's delta totals.
+* after the launch's cell totals are exchanged (copied from each lane's
+  K5 totals to the collective device, ``all_gather_into_tensor`` there
+  within a process group, and copied back to each other lane), K6 ``rd_scan``: the cell's depth lists from the carry of earlier
+  launches, the earlier cells' totals and its own rows, written into the
+  launch's output; its histogram of clip(rd_hi, 0, 255) is added into the
+  lane's histogram of the run, and the lane's last cell of the launch
+  stores the next launch's carry on the card.
 
-Then the carry: the totals of all cells of the launch are exchanged
-(``all_gather_into_tensor`` within a process group, a local stack without
-one), their exclusive prefix plus the carry of earlier launches gives each
-cell its base, and K6 ``rd_scan`` writes the cell's depth lists and its
-histogram of clip(rd_hi, 0, 255). The histogram is summed over cells and
-``all_reduce``d; the per-cell outputs are all-gathered, so every process
-returns the whole result.
+Between the cells of a launch nothing is uploaded, allocated or waited for
+on the host; the launch's outputs are all-gathered (so every process
+returns the whole result) and read once. The histogram is summed over
+lanes and ``all_reduce``d once per run.
 
 Chunked calls (``lo``/``hi``) carry nothing between them: spans are clipped
 to [lo, hi), so each call rebuilds the absolute depth of its range from
 zero. Tile outputs are bounded by the cell's width, so there is no overflow
-and no ``None`` return.
+and no ``None`` return. ``endpoint_deltas`` (and ``ops/state.py
+cell_deltas``) build the same deltas on the host, sorted: the reference the
+tests hold K5 to.
 """
 
 from __future__ import annotations
@@ -42,12 +52,15 @@ from grom_tpu_torch.ops.accumulate import (SpanIndex, merge_cands,
                                             result_header, result_rows,
                                             screen_threshold, tile_inputs,
                                             unpack_rows)
-from grom_tpu_torch.ops.state import cell_deltas
+from grom_tpu_torch.ops.state import span_inputs
 from grom_tpu_torch.parallel.mesh import (Mesh, current_group, make_mesh,
                                           visible_cuda_devices)
 from grom_tpu_torch.utils.timing import phase
 
 HIST_BINS = rd_depth.HIST_BINS
+# delta-row positions a lane holds in one K5 group: three int32 rows each,
+# 192 MB (64 cells of 2^18 positions)
+GROUP_POSITIONS = 64 << 18
 
 
 def _pow2(n: int, floor: int = 8) -> int:
@@ -55,6 +68,11 @@ def _pow2(n: int, floor: int = 8) -> int:
     while v < n:
         v *= 2
     return v
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)``, not waited for between CUDA devices."""
+    return dst.copy_(src, non_blocking=dst.is_cuda and src.is_cuda)
 
 
 def endpoint_deltas(batch, eligible: np.ndarray, min_mapq: int, L: int,
@@ -81,6 +99,44 @@ def endpoint_deltas(batch, eligible: np.ndarray, min_mapq: int, L: int,
     return (d_pos[order], np.concatenate([mq_w, -mq_w])[order],
             np.concatenate([hi_w, -hi_w])[order],
             np.concatenate([lo_w, -lo_w])[order])
+
+
+class _Lane:
+    """One device of the grid: the local cells of each launch it holds
+    (``ks``, in order) and K5's slot map on it."""
+
+    def __init__(self, dev: torch.device, ks: List[int], slot_of):
+        self.dev = dev
+        self.ks = ks
+        self.rank = {k: i for i, k in enumerate(ks)}
+        self.slot_of = slot_of
+
+
+class _LaneRun:
+    """One run's buffers on a lane's device: the run's spans, K5's outputs
+    for ``cells`` slots, the carry before each launch, the run's histogram,
+    and the staging the lane needs when it is not the collective device.
+    ``run`` holds them, so runs on one accumulator share no buffer."""
+
+    def __init__(self, lane: _Lane, batch, eligible, cells: int, seg_l: int,
+                 n_launches: int, n_launch: int, coll):
+        i32 = torch.int32
+        dev = lane.dev
+        self.lane = lane
+        self.spans = span_inputs(batch, eligible, dev)
+        self.rows, self.tot, self.csum = rd_depth.scatter_outputs(
+            cells, seg_l, dev)
+        self.carry = torch.zeros((n_launches + 1, 3), dtype=i32, device=dev)
+        self.hist = torch.zeros(HIST_BINS, dtype=i32, device=dev)
+        self.launch_tot = None
+        if dev != coll:
+            self.tot_buf = torch.empty((n_launch, 3), dtype=i32, device=dev)
+            self.rd_buf = torch.empty((3, seg_l), dtype=i32, device=dev)
+
+    def outputs(self, ng: int):
+        """K5's outputs for a group of ``ng`` launches."""
+        c = ng * len(self.lane.ks)
+        return self.rows[:c], self.tot[:c], self.csum[:c]
 
 
 class MeshAccumulator:
@@ -111,6 +167,20 @@ class MeshAccumulator:
         if mesh.group is not None:
             if dist.get_backend(mesh.group) != "nccl":
                 self.coll = torch.device("cpu")
+        self.lanes: List[_Lane] = []
+        # local cell -> index of its lane
+        self.lane_of: List[int] = []
+        for dev in mesh.devices:
+            li = next((i for i, x in enumerate(self.lanes) if x.dev == dev),
+                      None)
+            if li is None:
+                ks = [i for i, d in enumerate(mesh.devices) if d == dev]
+                slot_of = np.full(mesh.n_cells, -1, np.int32)
+                slot_of[mesh.first_cell + np.array(ks)] = np.arange(len(ks))
+                li = len(self.lanes)
+                self.lanes.append(
+                    _Lane(dev, ks, torch.from_numpy(slot_of).to(dev)))
+            self.lane_of.append(li)
 
     def _seg_l_for(self, L: int) -> int:
         if self.seg_l:
@@ -148,22 +218,40 @@ class MeshAccumulator:
         if reads.name_id is None or reads.name_len is None:
             raise ValueError("the mesh accumulator needs read-name ids: "
                              "decode the reads with their names")
+        m = self.mesh
+        i32 = torch.int32
         L = len(chrom)
         hi = hi if hi > 0 else L
         seg_l = self._seg_l_for(hi - lo)
         n_cells = -(-(hi - lo) // seg_l)
         cells = [(t0, min(t0 + seg_l, hi)) for t0 in range(lo, hi, seg_l)]
+        n = self.n_cells_launch
+        n_launches = -(-n_cells // n)
+        # launches per K5 group
+        per_group = min(n_launches, max(1, GROUP_POSITIONS // (
+            seg_l * max(len(x.ks) for x in self.lanes))))
 
-        part = chrom[lo:hi]
-        up = np.where(part >= 97, part - 32, part).astype(np.uint8)
-        with phase("mesh.endpoint_deltas"):
-            deltas = endpoint_deltas(batch, eligible, cfg.min_mapq, L, lo, hi)
-        prep = dict(
-            sindex=SpanIndex(batch), reads=reads,
-            elig_u8=eligible.astype(np.uint8), up=up,
-            is_n=up == ord("N"), gate_u8=(gate > 0).astype(np.uint8),
-            lo=lo, gate_base=gate_base, deltas=deltas,
-            thr=screen_threshold(cfg.min_snv_ratio), cfg=cfg)
+        with phase("mesh.prep"):
+            part = chrom[lo:hi]
+            up = np.where(part >= 97, part - 32, part).astype(np.uint8)
+            prep = dict(
+                sindex=SpanIndex(batch), reads=reads,
+                elig_u8=eligible.astype(np.uint8), up=up,
+                is_n=up == ord("N"), gate_u8=(gate > 0).astype(np.uint8),
+                lo=lo, gate_base=gate_base,
+                thr=screen_threshold(cfg.min_snv_ratio), cfg=cfg)
+        with phase("mesh.spans"):
+            runs = [_LaneRun(lane, batch, eligible, per_group * len(lane.ks),
+                             seg_l, n_launches, n, self.coll)
+                    for lane in self.lanes]
+        coll = self.coll
+        outs = dict(
+            bt=torch.zeros((m.n_local, seg_l), dtype=i32, device=coll),
+            rd=torch.zeros((m.n_local, 3, seg_l), dtype=i32, device=coll),
+            head=torch.zeros((m.n_local, accumulate.HDR), dtype=i32,
+                             device=coll),
+            tot_local=torch.zeros((m.n_local, 3), dtype=i32, device=coll),
+            tot_all=torch.zeros((n, 3), dtype=i32, device=coll))
 
         base_tot = (base_tot_out if base_tot_out is not None
                     else np.zeros(L, np.int64))
@@ -173,110 +261,120 @@ class MeshAccumulator:
             rd_mq = np.zeros(L, np.int32)
             rd_hi = np.zeros(L, np.int32)
             rd_lo = np.zeros(L, np.int32)
-        hist = np.zeros(HIST_BINS, np.int64)
         cand_parts: List[dict] = []
-        carry = np.zeros(3, np.int32)       # cross-launch rd carry
 
-        n = self.n_cells_launch
-        for r0 in range(0, n_cells, n):
-            launch = cells[r0:r0 + n]
-            bt, rd, h, cands = self._launch(launch, seg_l, carry, prep)
-            with phase("mesh.copy_out"):
-                for i, (t0, t1) in enumerate(launch):
-                    w = t1 - t0
-                    base_tot[t0 - base_tot_base:
-                             t1 - base_tot_base] = bt[i, :w]
-                    rd_mq[t0:t1] = rd[i, 0, :w]
-                    rd_hi[t0:t1] = rd[i, 1, :w]
-                    rd_lo[t0:t1] = rd[i, 2, :w]
-                    if cands[i] is not None:
-                        cand_parts.append(cands[i])
-            # the next launch's carry: the absolute depth at the last
-            # position of this launch's last real cell
-            w_last = launch[-1][1] - launch[-1][0]
-            carry = rd[len(launch) - 1, :, w_last - 1].astype(np.int32)
-            hist += h
+        for g0 in range(0, n_launches, per_group):
+            ng = min(per_group, n_launches - g0)
+            with phase("mesh.rd_scatter"):
+                for lr in runs:
+                    rd_depth.rd_scatter(lr.spans, lr.lane.slot_of, lo, hi, L,
+                                        cfg.min_mapq, seg_l, g0, ng,
+                                        *lr.outputs(ng))
+            for r in range(g0, g0 + ng):
+                launch = cells[r * n:(r + 1) * n]
+                bt, rd, cands = self._launch(r, r - g0, launch, prep, outs,
+                                             runs)
+                with phase("mesh.copy_out"):
+                    for i, (t0, t1) in enumerate(launch):
+                        w = t1 - t0
+                        base_tot[t0 - base_tot_base:
+                                 t1 - base_tot_base] = bt[i, :w]
+                        rd_mq[t0:t1] = rd[i, 0, :w]
+                        rd_hi[t0:t1] = rd[i, 1, :w]
+                        rd_lo[t0:t1] = rd[i, 2, :w]
+                        if cands[i] is not None:
+                            cand_parts.append(cands[i])
+        with phase("mesh.hist"):
+            hist = self._hist(runs)
         return base_tot, merge_cands(cand_parts), \
             (rd_mq, rd_hi, rd_lo), hist
 
-    def _launch(self, launch, seg_l: int, carry: np.ndarray, prep: dict):
-        """One launch of up to ``n_cells_launch`` cells. Returns (base_tot
-        int32 [n, seg_l], rd int32 [n, 3, seg_l], hist int64 [256], per-cell
-        candidate dicts or None), gathered on every process."""
+    def _launch_totals(self, rr: int, outs: dict, runs) -> None:
+        """Sets each lane run's ``launch_tot`` to the totals [n_cells_launch,
+        3] of every cell of the group's launch ``rr``, on the lane's
+        device."""
         m = self.mesh
-        coll = self.coll
-        i32 = torch.int32
+        local = outs["tot_local"]
+        for k, li in enumerate(self.lane_of):
+            lr = runs[li]
+            _copy(local[k], lr.tot[rr * len(lr.lane.ks) + lr.lane.rank[k]])
+        tot_all = local
+        if m.group is not None:
+            tot_all = outs["tot_all"]
+            dist.all_gather_into_tensor(tot_all, local, group=m.group)
+        for lr in runs:
+            lr.launch_tot = (tot_all if lr.lane.dev == self.coll
+                             else _copy(lr.tot_buf, tot_all))
+
+    def _launch(self, r: int, rr: int, launch, prep: dict, outs: dict,
+                runs):
+        """Launch ``r`` (``rr`` within its K5 group) of up to
+        ``n_cells_launch`` cells. Returns (base_tot int32 [n, seg_l], rd
+        int32 [n, 3, seg_l], per-cell candidate dicts or None), gathered on
+        every process."""
+        m = self.mesh
         k0 = m.first_cell
         mine = launch[k0:k0 + m.n_local]     # pad cells have no entry
         cfg = prep["cfg"]
         lo = prep["lo"]
 
-        tots, deltas, results = [], [], []
-        for k, dev in enumerate(m.devices):
-            if k >= len(mine):
-                tots.append(torch.zeros(3, dtype=i32, device=coll))
-                continue
-            t0, t1 = mine[k]
+        results = []
+        for k, (t0, t1) in enumerate(mine):
             with phase("mesh.tile"):
                 tile = tile_inputs(
                     prep["sindex"], prep["reads"], prep["elig_u8"], t0, t1,
                     prep["up"][t0 - lo:t1 - lo],
                     prep["is_n"][t0 - lo:t1 - lo],
                     prep["gate_u8"][t0 - prep["gate_base"]:
-                                    t1 - prep["gate_base"]], dev)
+                                    t1 - prep["gate_base"]], m.devices[k])
                 # a cell with no spans may still own end deltas
                 results.append(None if tile is None
                                else accumulate.tile_launch(
                                    tile, prep["thr"], cfg.min_mapq,
                                    cfg.min_base_qual, cfg.min_snv))
-            with phase("mesh.cell_deltas"):
-                ins = cell_deltas(*prep["deltas"], t0, t1, dev)
-            with phase("mesh.rd_scatter"):
-                delta, tot = rd_depth.rd_scatter(*ins, seg_l)
-            tots.append(tot.to(coll))
-            deltas.append(delta)
 
-        # ---- cross-cell carry -------------------------------------------
+        # ---- cross-cell carry and depth ---------------------------------
         with phase("mesh.carry"):
-            tot_all = self._gather(torch.stack(tots))           # [n, 3]
-            excl = torch.cumsum(tot_all, 0, dtype=i32) - tot_all
-            base = excl + torch.from_numpy(carry).to(coll)
-            bt_out = torch.zeros((m.n_local, seg_l), dtype=i32, device=coll)
-            rd_out = torch.zeros((m.n_local, 3, seg_l), dtype=i32,
-                                 device=coll)
-            hist = torch.zeros(HIST_BINS, dtype=i32, device=coll)
-            # each cell's result header, read with the gathers
-            head = torch.zeros((m.n_local, accumulate.HDR), dtype=i32,
-                               device=coll)
+            self._launch_totals(rr, outs, runs)
+            outs["bt"].zero_()
+            outs["head"].zero_()
         for k, (t0, t1) in enumerate(mine):
-            dev = m.devices[k]
+            lr = runs[self.lane_of[k]]
+            ks = lr.lane.ks
+            i = lr.lane.rank[k]
+            slot = rr * len(ks) + i
+            # the lane's last cell of the launch stores the next carry
+            last = i + 1 == len(ks) or ks[i + 1] >= len(mine)
+            on_coll = lr.lane.dev == self.coll
             with phase("mesh.rd_scan"):
-                rd, h = rd_depth.rd_scan(deltas[k], base[k0 + k].to(dev),
-                                         t1 - t0)
+                rd_depth.rd_scan(
+                    lr.rows[slot], lr.csum[slot], lr.launch_tot, k0 + k,
+                    lr.carry[r], t1 - t0,
+                    outs["rd"][k] if on_coll else lr.rd_buf, lr.hist,
+                    lr.carry[r + 1] if last else None)
             with phase("mesh.cell_outputs"):
-                rd_out[k] = rd.to(coll)
-                hist += h.to(coll)
+                if not on_coll:
+                    _copy(outs["rd"][k], lr.rd_buf)
                 if results[k] is not None:
-                    bt_out[k, :t1 - t0] = result_base_tot(results[k],
-                                                          t1 - t0).to(coll)
-                    head[k] = result_header(results[k]).to(coll)
+                    _copy(outs["bt"][k, :t1 - t0],
+                          result_base_tot(results[k], t1 - t0))
+                    _copy(outs["head"][k], result_header(results[k]))
         with phase("mesh.gathers"):
-            return self._gathers(launch, mine, results, hist, bt_out, rd_out,
-                                 head)
+            return self._gathers(launch, mine, results, outs)
 
-    def _gathers(self, launch, mine, results, hist, bt_out, rd_out, head):
+    def _gathers(self, launch, mine, results, outs):
         """The launch's outputs gathered on every process, as ``_launch``
         returns them."""
         m = self.mesh
         coll = self.coll
         i32 = torch.int32
         k0 = m.first_cell
-        hist = self._all_reduce(hist)
-        bt_all = self._gather(bt_out).cpu().numpy()
-        rd_all = self._gather(rd_out).cpu().numpy()
+        bt_all = self._gather(outs["bt"]).cpu().numpy()
+        rd_all = self._gather(outs["rd"]).cpu().numpy()
 
         # ---- candidates: counts, then rows padded to the largest -------
-        counts = [read_header(h)[1] for h in self._gather(head).cpu().numpy()]
+        counts = [read_header(h)[1]
+                  for h in self._gather(outs["head"]).cpu().numpy()]
         K = max(counts, default=0)
         out: List[Optional[dict]] = [None] * len(launch)
         if K:
@@ -285,13 +383,20 @@ class MeshAccumulator:
             for k, res in enumerate(results):
                 n = counts[k0 + k]
                 if n:
-                    packed[k, :n] = result_rows(res, mine[k][1] - mine[k][0],
-                                                n).to(coll)
+                    _copy(packed[k, :n],
+                          result_rows(res, mine[k][1] - mine[k][0], n))
             packed = self._gather(packed).cpu().numpy()
             for i, (t0, _) in enumerate(launch):
                 if counts[i]:
                     out[i] = unpack_rows(packed[i, :counts[i]], t0)
-        return bt_all, rd_all, hist.cpu().numpy().astype(np.int64), out
+        return bt_all, rd_all, out
+
+    def _hist(self, runs) -> np.ndarray:
+        """The run's histogram, summed over lanes and processes."""
+        hist = torch.zeros(HIST_BINS, dtype=torch.int32, device=self.coll)
+        for lr in runs:
+            hist += lr.hist.to(self.coll)
+        return self._all_reduce(hist).cpu().numpy().astype(np.int64)
 
 
 _MESH_ACC: dict = {}

@@ -3,7 +3,11 @@
 * ``MeshAccumulator`` on 2x2 and 1x1 grids of CPU cells against grom_tpu's
   ``MeshAccumulator`` on CPU jax meshes of the same shapes, on the same
   inputs: base_tot, the candidates, rd_mq/rd_hi/rd_lo and the histogram
-  exactly equal.
+  exactly equal; also with its depth-list groups cut small, and with the
+  grid's cells on two devices (``cpu`` and ``cpu:0`` are two device keys).
+* On the card (``cuda``-marked): a run makes no host sync outside its
+  launches' gathers and its histogram read, on one card and with the
+  grid's cells on two cards.
 * ``run(engine="mesh", device="cpu")`` (the plain versions of every kernel)
   against grom_tpu's host engine, byte for byte: the streamed path whole and
   chunked, the whole-batch path and ``-c``, on the fixtures with SVs and
@@ -17,8 +21,9 @@ import torch
 
 from grom_tpu_torch.config import GromConfig
 from grom_tpu_torch.parallel.mesh import make_mesh
+from grom_tpu_torch.parallel import pipeline
 from grom_tpu_torch.parallel.pipeline import MeshAccumulator
-from test_torch_rd_depth import synthetic_batch
+from grom_tpu_torch.testing.spans import edge_batch as synthetic_batch
 from test_torch_slice import (DATA, DATE, HostConfig, _cfg, _read,
                               grom_tpu_native)
 
@@ -103,6 +108,106 @@ def test_mesh_accumulator_cell_without_spans():
     acc = MeshAccumulator(mesh=make_mesh(2, 2, devices=["cpu"] * 4),
                           seg_l=1024)
     _same_result(acc.run(*inputs), _jax_result(inputs, (2, 2), 1024))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 1)])
+def test_mesh_accumulator_groups_match_jax(ds200k, monkeypatch, shape):
+    """Depth-list groups of at most two 2^14-base cells a device: K5 runs
+    once per launch (2x2) or once per two launches (1x1), so the carry
+    crosses group edges."""
+    ci = ds200k
+    monkeypatch.setattr(pipeline, "GROUP_POSITIONS", 2 << 14)
+    calls = []
+    scatter = pipeline.rd_depth.rd_scatter
+    monkeypatch.setattr(pipeline.rd_depth, "rd_scatter",
+                        lambda *a: calls.append(a[7]) or scatter(*a))
+    inputs = (ci.chrom, ci.batch, ci.eligible, ci.cfg, ci.gate)
+    n = shape[0] * shape[1]
+    acc = MeshAccumulator(mesh=make_mesh(*shape, devices=["cpu"] * n),
+                          seg_l=1 << 14)
+    _same_result(acc.run(*inputs), _jax_result(inputs, shape, 1 << 14))
+    launches = -(-(-(-len(ci.chrom) // (1 << 14))) // n)
+    per_group = 1 if n == 4 else 2
+    assert calls == list(range(0, launches, per_group))
+
+
+def test_mesh_accumulator_two_devices_match_jax(ds200k):
+    """A 2x2 grid whose cells alternate between two devices: each device's
+    K5 skips the other's cells, the launch's totals are gathered from both,
+    and the depth is copied to the collective device."""
+    ci = ds200k
+    inputs = (ci.chrom, ci.batch, ci.eligible, ci.cfg, ci.gate)
+    acc = MeshAccumulator(mesh=make_mesh(2, 2, devices=["cpu", "cpu:0"] * 2),
+                          seg_l=1 << 14)
+    assert len(acc.lanes) == 2
+    assert [lane.ks for lane in acc.lanes] == [[0, 2], [1, 3]]
+    _same_result(acc.run(*inputs), _jax_result(inputs, (2, 2), 1 << 14))
+
+
+def _run_without_sync(ci, monkeypatch, shape, devices):
+    """A run of ``ci`` on a grid over ``devices`` with torch's sync debug
+    mode raising outside each launch's gathers and the run's histogram
+    read (after a first run that builds the kernels); both runs equal to
+    the CPU run."""
+    inputs = (ci.chrom, ci.batch, ci.eligible, ci.cfg, ci.gate)
+    n = shape[0] * shape[1]
+    want = MeshAccumulator(mesh=make_mesh(*shape, devices=["cpu"] * n),
+                           seg_l=1 << 14).run(*inputs)
+    acc = MeshAccumulator(mesh=make_mesh(*shape, devices=devices),
+                          seg_l=1 << 14)
+    _same_result(acc.run(*inputs), want)         # builds the kernels
+    torch.cuda.synchronize()
+    waits = []
+
+    def may_sync(name):
+        fn = getattr(MeshAccumulator, name)
+
+        def f(self, *a):
+            waits.append(name)
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(self, *a)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        monkeypatch.setattr(MeshAccumulator, name, f)
+    may_sync("_gathers")
+    may_sync("_hist")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = acc.run(*inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _same_result(got, want)
+    launches = -(-(-(-len(ci.chrom) // (1 << 14))) // n)
+    assert waits == ["_gathers"] * launches + ["_hist"]
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_mesh_run_cuda_no_sync_between_cells(ds200k, monkeypatch, shape):
+    """On the card, with torch's sync debug mode raising: a run of ds200k
+    in 2^14-base cells (13 launches on a 1x1 grid, 4 launches of four cells
+    on a 2x2 grid on one card) makes no host sync outside each launch's
+    gathers and the run's histogram read, and equals the CPU run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _run_without_sync(ds200k, monkeypatch, shape,
+                      ["cuda:0"] * (shape[0] * shape[1]))
+
+
+@pytest.mark.cuda
+def test_mesh_run_two_cards_no_sync_between_cells(ds200k, monkeypatch):
+    """A 2x2 grid whose cells alternate between two cards: each card's K5
+    skips the other's cells, the launch's totals cross between the cards
+    and cuda:1's depth is copied to cuda:0, all without a host wait; the
+    run equals the CPU run, with no host sync outside each launch's
+    gathers and the histogram read."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    acc = _run_without_sync(ds200k, monkeypatch, (2, 2),
+                            ["cuda:0", "cuda:1"] * 2)
+    assert [lane.ks for lane in acc.lanes] == [[0, 2], [1, 3]]
 
 
 def test_mesh_needs_names():

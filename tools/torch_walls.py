@@ -2,6 +2,7 @@
 engine, each run in a fresh process, on one CUDA card.
 
     python3 tools/torch_walls.py [--rounds 2] [--engines grom_tpu,host,...]
+                                 [--repos DIR,...]
 
 One round runs, by default, grom_tpu's host engine (``python -m
 grom_tpu``, GROM_TPU_ENGINE=host) and the port's host, torch and mesh
@@ -9,9 +10,12 @@ engines (``python -m grom_tpu_torch``, GROM_TPU_TORCH_ENGINE=...);
 ``grom_tpu_noslab`` is grom_tpu's host engine without its huge-page slab
 allocator (GROM_TPU_HUGEALLOC=0). Odd rounds run the engines in the
 reverse order, so each sits early and late once per pair of rounds.
-Every run has GROM_TPU_TIMING=1; its phase table is parsed from stderr.
-Every VCF and .ctx.vcf must equal the first run's, byte for byte apart
-from the ##fileDate line.
+Every run has GROM_TPU_TIMING=1; its phase table is parsed from stderr
+(the phases below and every ``mesh.*`` label of the mesh engine).
+``--repos`` runs each engine from each of several checkouts in turn (a
+parent commit unpacked with ``git archive`` into a gitignored directory
+of this one: parent, change, change, parent over two rounds). Every VCF and .ctx.vcf must equal the first
+run's, byte for byte apart from the ##fileDate line.
 
 Prints one line per run (engine, wall, phases), the card's name and power
 limit, and a JSON line with every run. The dataset and outputs go under
@@ -37,9 +41,9 @@ PHASES = ("call.cnv", "cnv.winscan", "cnv.winscan_dev", "cnv.seed_eval_dev",
           "scan.deposits")
 
 
-def run_one(engine: str, argv, vcf: str) -> dict:
+def run_one(engine: str, argv, vcf: str, repo: str = REPO) -> dict:
     env = dict(os.environ, GROM_TPU_TIMING="1",
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
     if engine in GROM_TPU:
         # grom_tpu's slab allocator keeps no warm pool outside the checkout
         env.update(GROM_TPU_ENGINE="host", GROM_TPU_SHM_POOL="0",
@@ -50,7 +54,7 @@ def run_one(engine: str, argv, vcf: str) -> dict:
         mod = "grom_tpu_torch"
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", mod, *argv, "-o", vcf],
-                       cwd=REPO, env=env, capture_output=True, text=True,
+                       cwd=repo, env=env, capture_output=True, text=True,
                        timeout=900)
     wall = time.perf_counter() - t0
     if r.returncode != 0:
@@ -59,9 +63,10 @@ def run_one(engine: str, argv, vcf: str) -> dict:
     phases = {}
     for ln in r.stderr.splitlines():
         m = re.match(r"^(\S+)\s+([\d.]+)s\s", ln)
-        if m and m.group(1) in PHASES:
+        if m and (m.group(1) in PHASES or m.group(1).startswith("mesh.")):
             phases[m.group(1)] = float(m.group(2))
-    return {"engine": engine, "wall_s": wall, "phases": phases}
+    return {"engine": engine, "repo": os.path.relpath(repo, REPO),
+            "wall_s": wall, "phases": phases}
 
 
 def body(path: str) -> bytes:
@@ -73,8 +78,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--engines", default=",".join(ENGINES))
+    ap.add_argument("--repos", default=REPO,
+                    help="checkouts to run the engines from, comma-separated")
     a = ap.parse_args()
     engines = tuple(a.engines.split(","))
+    repos = [os.path.abspath(r) for r in a.repos.split(",")]
     for e in engines:
         if e not in ENGINES and e not in GROM_TPU:
             ap.error("unknown engine %r" % e)
@@ -87,11 +95,12 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     argv = chip_smoke.bulk_args()
     runs, first = [], None
+    units = [(i, repo, e) for i, repo in enumerate(repos) for e in engines]
     for rnd in range(a.rounds):
-        order = engines if rnd % 2 == 0 else engines[::-1]
-        for engine in order:
-            vcf = os.path.join(OUT, "%s.%d.vcf" % (engine, rnd))
-            res = run_one(engine, argv, vcf)
+        order = units if rnd % 2 == 0 else units[::-1]
+        for i, repo, engine in order:
+            vcf = os.path.join(OUT, "%s.%d.%d.vcf" % (engine, i, rnd))
+            res = run_one(engine, argv, vcf, repo)
             if first is None:
                 first = vcf
             for x, y in ((vcf, first), (vcf[:-4] + ".ctx.vcf",
@@ -99,9 +108,11 @@ def main() -> int:
                 if body(x) != body(y):
                     raise AssertionError("%s differs from %s" % (x, y))
             runs.append(res)
-            print("%-9s %8.3f s  %s" % (engine, res["wall_s"], " ".join(
-                "%s %.3f" % kv for kv in sorted(res["phases"].items()))),
-                flush=True)
+            phases = " ".join("%s %.3f" % kv
+                              for kv in sorted(res["phases"].items()))
+            print("%-9s %-14s %8.3f s  %s" % (engine, res["repo"],
+                                              res["wall_s"], phases),
+                  flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
