@@ -20,8 +20,10 @@ non-zero without its result line:
    launches and chunks on the card;
 5. real size: one 24 Mb chromosome at 30x (grom_tpu_torch.testing.bulk_sim,
    seed 5), host engine then torch engine, VCF and .ctx.vcf byte-identical;
-   the launch counts of the torch run, its phases ``scan.device`` and
-   ``cnv.nullmodel_dev``, every kernel's card time summed over the run
+   the launch counts of the torch run, its phases ``scan.device``,
+   ``cnv.zscores_dev``, ``cnv.nullmodel_dev`` and ``call.sv_detect``, the
+   host time of one ``SvScorer`` call on the largest SV window, every
+   kernel's card time summed over the run
    (torch.profiler) beside the sum of its launches' bounds, the seed_eval
    launches by CUDA events and the card's busy time over the run; then
    every kernel of that path against its plain version, bitwise and timed
@@ -30,13 +32,16 @@ non-zero without its result line:
    the null model timed by CUDA events between its launches; and the
    adversarial inputs: a coverage-spike tile whose first window spills its
    mismatch list, a tile with no mismatch, the null model in batches of 64
-   segments;
+   segments, the z-score cases of testing/zcases.py (short, empty and
+   capped bin rows, keys past a row's largest value and from the clamp, a
+   2.5 M-base desert without a class update, a first update at 1.7 M);
 6. real size on the mesh engine: the same chromosome in a one-process NCCL
    group (its collectives are real NCCL calls on the card), on the 1x1
    grid of one card, byte-identical to phase 5's host output; the launch
    counts (the tile kernel and K6 at least once per cell, K5 at least once
    per ``MeshAccumulator.run``), its ``scan.device`` in parts (the
-   ``mesh.*`` labels) and summed card times of that run; then the depth
+   ``mesh.*`` labels), its ``cnv.zscores_dev``, ``cnv.nullmodel_dev`` and
+   ``call.sv_detect``, and summed card times of that run; then the depth
    and SV kernels against their plain versions, bitwise and timed, and the
    depth kernels bitwise on the edge batch (testing/spans.py) run whole
    and chunked by the mesh engine on the card, equal to the CPU run.
@@ -88,7 +93,7 @@ KERNELS = {
 # name -> the CUDA functions (csrc/) of its launches, for card-time sums
 KERNEL_FUNCS = {
     "tile_accumulate": ("tile_window", "tile_compact"),
-    "zscores": ("zs_block_last", "exclusive_cummax", "zs_eval"),
+    "zscores": ("zs_table", "zs_onepass"),
     "seed_eval": ("seed_eval_tier1", "seed_eval_tier2"),
     "null_model": ("null_prefix", "null_carry", "null_accum"),
     "rd_scatter": ("rd_scatter_kernel",),
@@ -319,7 +324,7 @@ class Recorder:
             t = args[0]
             return (int(t.chrom_up.shape[0]), t.n_events)
         if name == "zscores":
-            return (int(args[0].shape[0]),)
+            return (int(args[0].depth.shape[0]),)
         if name == "seed_eval":
             return (int(out[0].sum()), int(args[1].shape[0]))   # f1
         if name == "null_model":
@@ -328,7 +333,7 @@ class Recorder:
             return (int(args[0].ref.shape[0]), int(args[9].shape[0]))
         if name == "rd_scan":
             return (int(args[0].shape[1]), int(args[5]))
-        return (int(args[0].shape[0]),)
+        return (int(args[0].shape[1]),)      # sv_score: entries [9, n]
 
     def __enter__(self):
         for name, (mod, attr, _, _) in _targets().items():
@@ -492,13 +497,10 @@ def bound(name, args, out):
                  else 4 * result_len(L, 0)))
         ops, rate = 8 * ev, F32_OPS_S
     elif name == "zscores":
-        # the per-base inputs and z; the sorted bin rows are searched, not
-        # streamed, so they are not counted
-        tables = args[5]
-        n = int(args[0].shape[0])
-        nb = (_nbytes(args[:5]) + _nbytes(out)
-              + _nbytes([v for k, v in tables._asdict().items()
-                         if k != "mat"]))
+        # the per-base inputs (depth, mq, gc, low_acgt: 8 bytes a base; the
+        # mapq weight is computed, not read), z and the tables
+        n = int(args[0].depth.shape[0])
+        nb = _nbytes(args[0]) + _nbytes(out) + _nbytes(args[1])
         ops, rate = 6 * n, F64_OPS_S
     elif name == "seed_eval":
         si, seeds, _, minw = args[:4]
@@ -535,11 +537,11 @@ def bound(name, args, out):
         nb = _nbytes(args[:3]) + _nbytes(args[4]) + _nbytes(args[6:])
         ops, rate = 3 * int(args[0].shape[1]) + int(args[5]), F32_OPS_S
     else:   # sv_score
-        n = int(args[0].shape[0])
-        tables = args[9]
-        # the entries and outputs, two table entries gathered per entry,
-        # the etype index tables; about ten f64 operations per entry
-        nb = (_nbytes(args[:9]) + _nbytes(out) + 16 * n
+        n = int(args[0].shape[1])
+        tables = args[1]
+        # the packed entries and scores, two table entries gathered per
+        # entry, the etype index tables; about ten f64 operations per entry
+        nb = (_nbytes(args[0]) + _nbytes(out) + 16 * n
               + _nbytes([tables.kind, tables.rev]))
         ops, rate = 10 * n, F64_OPS_S
     t_bytes, t_ops = nb / HBM_BYTES_S, ops / rate
@@ -913,10 +915,12 @@ def phase_real_size() -> dict:
         % (card["kernel_ms"], card["other_ms"], t_dev,
            1.0 - (card["kernel_ms"] + card["other_ms"]) / 1e3 / t_dev))
     say("phases of the torch run: scan.device %.3f s (%d tiles), "
-        "cnv.nullmodel_dev %.3f s"
-        % (wall("scan.device"), launches["tile_accumulate"],
-           wall("cnv.nullmodel_dev")))
+        "cnv.zscores_dev %.3f s, cnv.nullmodel_dev %.3f s, call.sv_detect "
+        "%.3f s" % (wall("scan.device"), launches["tile_accumulate"],
+                    wall("cnv.zscores_dev"), wall("cnv.nullmodel_dev"),
+                    wall("call.sv_detect")))
     sums = report_run_sums(card, rec, launches, TORCH_PATH, "torch run")
+    report_sv_call(rec)
 
     say("-- kernels against their plain versions (inputs of this run; "
         "tolerance: integers exact, f64 bitwise)")
@@ -934,7 +938,8 @@ def check_adversarial(rec: Recorder) -> None:
     launches) on the recorded largest inputs, and bitwise against their
     plain versions on inputs built to break them: a coverage-spike tile
     whose first window spills its mismatch list past shared memory, a tile
-    with no mismatch, the null model in batches of 64 segments."""
+    with no mismatch, the null model in batches of 64 segments, the z-score
+    cases of testing/zcases.py."""
     import numpy as np
     import torch
 
@@ -976,7 +981,59 @@ def check_adversarial(rec: Recorder) -> None:
             cnv_device.null_pass_ms(z, gate, seg, minw, maxw, batch=64))))
     if not np.isfinite(got).all():
         raise AssertionError("null model: non-finite window stdev")
+    check_zscore_cases()
     torch.cuda.synchronize()
+
+
+def report_sv_call(rec: Recorder) -> None:
+    """Host milliseconds of one ``SvScorer`` call (numpy in, numpy out:
+    packing, one upload, the launch, one copy back) on the largest SV
+    window of the run, the median of 30 calls after a warm-up one."""
+    import numpy as np
+
+    from grom_tpu_torch.ops import sv_device
+    entries = rec.best["sv_score"][1][0]
+    scorer = [v[2] for v in sv_device._CACHE.values()][-1]
+    ent = entries.cpu().numpy()
+    args = [ent[k].astype(np.int32) if k == 1 else ent[k].copy()
+            for k in range(ent.shape[0])]
+    scorer(*args)
+    times = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        scorer(*args)
+        times.append(1e3 * (time.perf_counter() - t0))
+    say("SvScorer call on the largest window (%d entries): %.4f ms host "
+        "time (median of 30; min %.4f, max %.4f)"
+        % (ent.shape[1], float(np.median(times)), min(times), max(times)))
+
+
+def check_zscore_cases() -> None:
+    """The z kernel bitwise against its plain version (CPU copies) on the
+    seeded cases of testing/zcases.py, ranks on and off."""
+    from grom_tpu_torch.call.cnv import build_pval2sd
+    from grom_tpu_torch.ops import cnv_device, state
+    from grom_tpu_torch.testing import zcases
+    pv_p, pv_sd = build_pval2sd()
+    par = (zcases.MIN_MAPQ, zcases.MAPQ_FACTOR, zcases.DUP_THR_FACTOR)
+    for case in zcases.CASES:
+        depth, mq, gc, la, arrs, cap, nb = zcases.zscore_case(case)
+        ave, std = zcases.bin_stats(arrs)
+        on = {dev: (state.cnv_tables(arrs, ave, std, pv_p, pv_sd, dev,
+                                     cap=cap),
+                    state.z_inputs(depth, mq, gc, la, 0, len(depth), dev))
+              for dev in ("cuda", "cpu")}
+        nz = []
+        for ranks in (True, False):
+            got = cnv_device.zscores(on["cuda"][1], on["cuda"][0], nb, *par,
+                                     ranks)
+            want = cnv_device.zscores_plain(on["cpu"][1], on["cpu"][0], nb,
+                                            *par, ranks)
+            _diff(got, want, exact=True)
+            nz.append(int((want != 0).sum()))
+        say("z case %r (%d bases, table cap %d): equal to the plain version, "
+            "ranks on and off (%d and %d non-zero z)"
+            % (case, len(depth), cap, nz[0], nz[1]))
 
 
 def phase_real_size_mesh() -> dict:
@@ -1035,6 +1092,11 @@ def phase_real_size_mesh() -> dict:
             snap.get("scan.device", (0.0,))[0], ", ".join(
                 "%s %.3f s (x%d)" % (k, v[0], v[5])
                 for k, v in sorted(snap.items()) if k.startswith("mesh."))))
+        say("phases of the mesh run: cnv.zscores_dev %.3f s, "
+            "cnv.nullmodel_dev %.3f s, call.sv_detect %.3f s" % tuple(
+                snap.get(k, (0.0,))[0] for k in (
+                    "cnv.zscores_dev", "cnv.nullmodel_dev",
+                    "call.sv_detect")))
         for k in KERNELS:
             if launches.get(k, 0) <= 0:
                 raise AssertionError("kernel %s was not launched" % k)

@@ -11,7 +11,9 @@ port's own library from the C sources in native/. The port imports nothing
 of grom_tpu. Output is byte-identical to the host engine.
 
 Run it as ``python -m grom_tpu_torch -i x.bam -r x.fa -o out.vcf``;
-GROM_TPU_TORCH_ENGINE=host|torch|mesh|auto selects the engine (driver.py).
+GROM_TPU_TORCH_ENGINE=host|torch|mesh|auto selects the engine (driver.py);
+GROM_TPU_EARLY=1 inflates the BAM while the package imports
+(_earlyingest.py).
 """
 
 
@@ -37,6 +39,28 @@ def _tune_malloc() -> None:
         pass
 
 
+def _start_early_ingest() -> None:
+    """With GROM_TPU_EARLY=1, start inflating the ``-i`` BAM of a CLI run
+    on a thread (_earlyingest.py, stdlib + ctypes) while numpy and torch
+    import, gated as grom_tpu/__init__.py gates it. grom_tpu's memory
+    preheat and slab allocator are not ported."""
+    import os
+    import sys
+    bam = None
+    try:
+        argv = sys.argv
+        if "-i" in argv:
+            cand = argv[argv.index("-i") + 1]
+            if cand.endswith(".bam") and os.path.exists(cand):
+                bam = cand
+    except (ValueError, IndexError):
+        bam = None
+    if bam is not None and os.environ.get("GROM_TPU_EARLY", "0") == "1":
+        from grom_tpu_torch import _earlyingest
+        _earlyingest.start(bam)
+
+
 _tune_malloc()
+_start_early_ingest()
 
 __version__ = "0.3.0"

@@ -686,29 +686,27 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
     # remains the differential oracle (tests/test_native_cnv.py)
     if engine in ("torch", "mesh"):
         # the port's kernels (ops/cnv_device.py, csrc/cnv.cu) on ``device``:
-        # z-scores, the null model and the per-seed window math, bitwise
-        # equal to the native path below. The mapq weight, the repeat
+        # z-scores (mapq weight included), the null model and the per-seed
+        # window math, bitwise equal to the native path below. The repeat
         # rescore, the outer walk and the copy number stay on the host.
+        import torch
+
         from grom_tpu_torch.ops import cnv_device, state
         lo_z, hi_z = full_blocks[0]
+        # z on the device, zero outside [lo_z, hi_z): the null model reads
+        # it there; the host gets one copy
+        z_dev = torch.zeros(L, dtype=torch.float64, device=device)
         if hi_z > lo_z:
             with _ph0("cnv.zscores_dev"):
-                mat, lens = cnv_device.build_bin_matrix(hi_arr, lo_arr, NB)
-                tables = state.cnv_tables(mat, lens, ave, std, pv_p, pv_sd,
-                                          device)
-                mq_b = mq[lo_z:hi_z]
-                # the mapq weight stays host-side, in numpy's order
-                w = np.where(mq_b >= cfg.min_mapq,
-                             mf + (1.0 - mf) * (mq_b - cfg.min_mapq) / 40.0,
-                             mf)
-                dev = lambda a, dt: state.to_device(a[lo_z:hi_z], dt, device)
-                z = cnv_device.zscores(
-                    dev(depth, np.int32), dev(mq, np.int16), dev(gc, np.int8),
-                    dev(low_acgt, np.int8),
-                    state.to_device(w, np.float64, device), tables, NB,
-                    cfg.min_mapq, cfg.dup_threshold_factor,
-                    cfg.ranks_stdev != 0)
-                stdev_list[lo_z:hi_z] = z.cpu().numpy()
+                tables = state.cnv_tables(list(hi_arr) + list(lo_arr), ave,
+                                          std, pv_p, pv_sd, device)
+                zin = state.z_inputs(depth, mq, gc, low_acgt, lo_z, hi_z,
+                                     device)
+                cnv_device.zscores(zin, tables, NB, cfg.min_mapq, mf,
+                                   cfg.dup_threshold_factor,
+                                   cfg.ranks_stdev != 0, z_dev[lo_z:hi_z])
+                torch.from_numpy(stdev_list)[lo_z:hi_z].copy_(
+                    z_dev[lo_z:hi_z])
         # the null model reads the PRE-rescore z (src/GROM.c:18975-19015)
         with _ph0("cnv.nullmodel_dev"):
             gate_nm = (low_acgt == 0) & np.where(
@@ -717,8 +715,7 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
                                            cfg.max_rd_window_len,
                                            cfg.sampling_rate)
             win_std = cnv_device.null_model(
-                state.to_device(stdev_list, np.float64, device),
-                state.to_device(gate_nm, np.bool_, device), seg,
+                z_dev, state.to_device(gate_nm, np.bool_, device), seg,
                 cfg.min_rd_window_len, cfg.max_rd_window_len)
         if prep.most_biased_repeat != -1:
             with _ph0("cnv.rescore"):

@@ -8,12 +8,21 @@
 //                                         batch of segments)
 //
 // What bounds them on an H100:
-//   * z-scores: one thread per base, two binary searches into the base's
-//     sorted (class, GC) depth row plus one into pval2sd. Bounded by the
-//     dependent loads of the searches (the rows stay in L2), not by f64
-//     arithmetic. The sticky-class forward fill crosses blocks, so it is a
-//     separate block-maximum pass, a one-block scan over blocks and a
-//     per-base resolve with an in-block scan.
+//   * z-scores: per base, a forward-filled depth class, a (class, GC) bin,
+//     two midrank counts in the bin's sorted row, a pval2sd bisection and
+//     the mapq weight. Its bound is the bytes: 8 bytes of inputs and 8 of
+//     z a base. So one pass reads each input once: persistent blocks take
+//     tiles of 2,048 bases in order, with vector loads; the sticky class
+//     is a running maximum of idx * 2 + class (the class rides in the low
+//     bit, so no gather at the filled index) scanned per thread, warp and
+//     block and carried across tiles by a decoupled look-back over one
+//     state word a tile. The z before the weight is a function of (bin
+//     row, depth) alone, so a first launch computes it once for every
+//     depth a row's count table covers (cnt[v] = #(row <= v), built on the
+//     host once per call: under a megabyte at 30x, L2-resident), and a
+//     base reads it there and multiplies by its mapq's weight from a
+//     shared-memory table; only depths past a row's table (a bisection of
+//     the row's tail) or mapqs past the weight table are computed in place.
 //   * seed evaluation: per (seed, class), a walk over the seed's window up
 //     to its first fail: integer counts, one f64 add per offset into a
 //     running total that must stay a sequential chain in the host's order,
@@ -66,168 +75,298 @@
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int SCAN_THREADS = 1024;
 
 inline int blocks_for(long n) { return (int)((n + BLOCK - 1) / BLOCK); }
+
+// ---------------------------------------------------------------------------
+// z-scores: one pass over the per-base data
+// ---------------------------------------------------------------------------
+
+constexpr int ZT = 256;             // threads of a z block
+constexpr int ZMINB = 3;            // z blocks an SM holds (80 registers)
+constexpr int ZI = 8;               // consecutive bases a thread holds
+constexpr int ZTILE = ZT * ZI;      // bases of a tile
+constexpr int ZTW = 4096;           // depths of a row in the z table
+constexpr int ZROW = 5;             // ints per bin row (ops/cnv_device.py)
+constexpr unsigned ZFULL = 0xffffffffu;
+// a tile's output staged in shared memory, one pad double every 16 so
+// that the per-thread writes (8 doubles apart) spread over the banks
+constexpr int ZOUT = ZTILE + ZTILE / 16;
+__device__ __forceinline__ int zpad(int e) { return e + (e >> 4); }
 
 struct ZIn {
   const int32_t* depth;
   const int16_t* mq;
   const int8_t* gc;
   const int8_t* low_acgt;
-  const double* w;
-  const int64_t* mat;     // [2 nb, maxn], rows sorted ascending
-  const int64_t* lens;    // [2 nb]
-  const double* ave;      // [2 nb]
-  const double* std;      // [2 nb]
+  const int32_t* rows;    // [R, ZROW]: nk, width, cnt offset, tail offset,
+                          // tail length
+  const int32_t* cnt;     // cnt[off + v] = #(row <= v), v in [0, width)
+  const int32_t* tail;    // per row, its values >= width, ascending
+  const double* ave;      // [R]
+  const double* std;      // [R]
   const double* pv_p;     // [P], non-decreasing
   const double* pv_sd;    // [P]
   long n;
-  long maxn;
+  int R;
   int P;
   int nb;
   int min_mapq;
+  double mf;              // mapq_factor
+  double omf;             // 1.0 - mapq_factor, as the host computes it
   double dup_thr_factor;
   int ranks;
 };
 
-// definite class of base i: 0 high mapq, 1 low mapq with depth, -1 none
-__device__ __forceinline__ int def_class(const ZIn& z, long i) {
-  if (z.mq[i] >= z.min_mapq) return 0;
-  return z.depth[i] > 0 ? 1 : -1;
+// A tile's state word for the look-back: flag << 32 | (value + 1); flag 1:
+// the tile's own aggregate (value -1: no update in it), flag 2: the
+// inclusive forward-fill state up to the tile's end.
+__device__ __forceinline__ unsigned long long zs_word(int flag, int val) {
+  return ((unsigned long long)flag << 32) | (unsigned)(val + 1);
 }
 
-// base i updates the sticky class (eligible and definite)
-__device__ __forceinline__ bool updates(const ZIn& z, long i) {
-  const bool hi_mq = z.mq[i] >= z.min_mapq;
-  const long k = (hi_mq ? 0 : z.nb) + z.gc[i];
-  const bool eligible = z.low_acgt[i] == 0 && z.lens[k] > 1;
-  return eligible && def_class(z, i) >= 0;
-}
-
-__global__ void zs_block_last(ZIn z, int64_t* block_last) {
-  __shared__ int64_t red[BLOCK];
-  const long i = (long)blockIdx.x * BLOCK + threadIdx.x;
-  red[threadIdx.x] = (i < z.n && updates(z, i)) ? i : -1;
-  __syncthreads();
-  for (int s = BLOCK / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s && red[threadIdx.x + s] > red[threadIdx.x])
-      red[threadIdx.x] = red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) block_last[blockIdx.x] = red[0];
-}
-
-// Exclusive running maximum over ``n`` values (initial -1), one block.
-__global__ void exclusive_cummax(const int64_t* in, int64_t* out, long n) {
-  __shared__ int64_t part[SCAN_THREADS];
-  const long per = (n + SCAN_THREADS - 1) / SCAN_THREADS;
-  const long b0 = threadIdx.x * per;
-  const long b1 = b0 + per < n ? b0 + per : n;
-  int64_t m = -1;
-  for (long i = b0; i < b1; ++i) m = in[i] > m ? in[i] : m;
-  part[threadIdx.x] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int64_t run = -1;
-    for (int t = 0; t < SCAN_THREADS; ++t) {
-      const int64_t v = part[t];
-      part[t] = run;
-      run = v > run ? v : run;
-    }
-  }
-  __syncthreads();
-  int64_t run = part[threadIdx.x];
-  for (long i = b0; i < b1; ++i) {
-    out[i] = run;
-    run = in[i] > run ? in[i] : run;
-  }
-}
-
-// number of row[0:len) elements <= key (right) or < key (left)
-__device__ __forceinline__ long row_search(const int64_t* row, long len,
-                                           int64_t key, bool right) {
-  long lo = 0, hi = len;
-  while (lo < hi) {
-    const long mid = (lo + hi) >> 1;
-    const bool go = right ? row[mid] <= key : row[mid] < key;
-    if (go) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int pv_search(const double* pv, int P, double x) {
-  int lo = 0, hi = P;
+// #(row <= key) for the row whose ZROW ints are ``r``
+__device__ __forceinline__ long count_le(const ZIn& z, const int* r,
+                                         long key) {
+  if (key < 0) return 0;
+  if (key < r[1]) return __ldg(z.cnt + r[2] + key);
+  // past the table: the row's values below its width, then a bisection
+  // of the tail (empty unless the row reaches the table cap)
+  const int32_t* t = z.tail + r[3];
+  int lo = 0, hi = r[4];
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (pv[mid] <= x) lo = mid + 1; else hi = mid;
+    if ((long)__ldg(t + mid) <= key) lo = mid + 1; else hi = mid;
   }
-  return lo;
+  return (long)(r[0] - r[4]) + lo;
 }
 
-__global__ void zs_eval(ZIn z, const int64_t* carry, double* out) {
-  __shared__ int64_t scan[BLOCK];
-  const long i = (long)blockIdx.x * BLOCK + threadIdx.x;
-  const bool in = i < z.n;
-  scan[threadIdx.x] = (in && updates(z, i)) ? i : -1;
-  __syncthreads();
-  // inclusive in-block running maximum (Hillis-Steele)
-  for (int s = 1; s < BLOCK; s <<= 1) {
-    const int64_t v = threadIdx.x >= s ? scan[threadIdx.x - s] : -1;
-    __syncthreads();
-    if (v > scan[threadIdx.x]) scan[threadIdx.x] = v;
-    __syncthreads();
-  }
-  if (!in) return;
-  int64_t fi = scan[threadIdx.x];
-  if (carry[blockIdx.x] > fi) fi = carry[blockIdx.x];
-
-  const int defz = def_class(z, i);
-  const bool hi_mq = z.mq[i] >= z.min_mapq;
-  const long k_elig = (hi_mq ? 0 : z.nb) + z.gc[i];
-  const bool eligible = z.low_acgt[i] == 0 && z.lens[k_elig] > 1;
-  const int last_cls = fi >= 0 ? def_class(z, fi) : 0;
-  const int cls = defz >= 0 ? defz : last_cls;
-  const long k = (long)cls * z.nb + z.gc[i];
-  const long nk = z.lens[k];
-  if (!(eligible && nk > 0)) {
-    out[i] = 0.0;
-    return;
-  }
-  const int64_t d = z.depth[i];
+// The z of depth d in bin row k before the mapq weight: midrank counts and
+// pval2sd (ranks), or the bin's mean and stdev; ``pvp``/``pvsd`` the
+// pval2sd table in shared or global memory. A function of (k, d) alone.
+// Not inlined: the one-pass kernel calls it only past the (row, depth)
+// table, and its ``z`` is the kernel's __grid_constant__ parameter, so
+// the reference costs no copy.
+__device__ __noinline__ double zs_base(const ZIn& z, const int* r, int k,
+                                       long d, const double* pvp,
+                                       const double* pvsd) {
+  const long nk = r[0];
   const double dd = (double)d;
   const double av = z.ave[k];
-  const int64_t* row = z.mat + k * z.maxn;
   const bool below = dd < av;
   const double clamp = z.dup_thr_factor * av;
-  double base;
   if (z.ranks) {
-    const int64_t key_l = dd > clamp ? (int64_t)clamp : d;
+    const long key_l = dd > clamp ? (long)clamp : d;
+    // the reference bisection's quirk: n == 2 with result 0 gives 1
+    auto fx = [nk](long c) { return (nk == 2 && c == 0) ? 1L : c; };
     long bi, bi2;
-    // the reference bisection's quirk: n == 2 with result 0 returns 1
-    auto fx = [nk](long s) { return (nk == 2 && s == 0) ? 1L : s; };
     if (below) {
-      bi = fx(row_search(row, nk, d, true));
-      bi2 = fx(row_search(row, nk, d, false));
+      bi = fx(count_le(z, r, d));
+      bi2 = fx(count_le(z, r, d - 1));
     } else {
-      bi = nk - fx(row_search(row, nk, key_l, false));
-      bi2 = nk - fx(row_search(row, nk, d, true));
+      bi = nk - fx(count_le(z, r, key_l - 1));
+      bi2 = nk - fx(count_le(z, r, d));
     }
     const double di = bi <= 0 ? 0.5 : (double)bi;
     const double di2 = bi2 <= 0 ? 0.5 : (double)bi2;
     const double prob = (di + di2) / (2.0 * (double)nk);
-    int pi = pv_search(z.pv_p, z.P, prob);
-    if (pi > z.P - 1) pi = z.P - 1;
-    base = below ? z.pv_sd[pi] : -z.pv_sd[pi];
-  } else {
-    const double sb = z.std[k];
-    if (below || !(dd > clamp)) {
-      base = sb != 0.0 ? (av - dd) / sb : 0.0;
-    } else {
-      base = sb != 0.0 ? (z.dup_thr_factor - 1.0) * (-av) / sb : 0.0;
+    int lo = 0, hi = z.P;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (pvp[mid] <= prob) lo = mid + 1; else hi = mid;
     }
+    const int pi = lo < z.P - 1 ? lo : z.P - 1;
+    return below ? pvsd[pi] : -pvsd[pi];
   }
-  out[i] = z.w[i] * base;
+  const double sb = z.std[k];
+  if (below || !(dd > clamp)) return sb != 0.0 ? (av - dd) / sb : 0.0;
+  return sb != 0.0 ? (z.dup_thr_factor - 1.0) * (-av) / sb : 0.0;
+}
+
+// the mapq weight in numpy's order of operations (no contraction: the
+// library is built with --fmad=false)
+__device__ __forceinline__ double zs_weight(const ZIn& z, int mq) {
+  return mq >= z.min_mapq
+      ? z.mf + (z.omf * (double)(mq - z.min_mapq)) / 40.0 : z.mf;
+}
+
+constexpr int ZW = 256;   // mapq values of the weight table
+
+// The z of every (row, depth < ZTW) pair before the mapq weight into
+// ``base`` [R, ZTW], one thread a pair (grid: rows x ZTW / 256; the pval2sd
+// bisections read through L1). Most bases then read their z here instead
+// of computing it.
+__global__ void zs_table(const __grid_constant__ ZIn z, double* base) {
+  const int k = blockIdx.x;
+  const int v = blockIdx.y * blockDim.x + threadIdx.x;
+  const int* r = z.rows + k * ZROW;
+  if (r[0] > 0 && v < ZTW)
+    base[(long)k * ZTW + v] = zs_base(z, r, k, v, z.pv_p, z.pv_sd);
+}
+
+// A thread's ZI bases of a full tile as loaded: 64 bytes in five vector
+// loads (the inputs are 16-byte aligned)
+struct ZRaw {
+  int4 d0, d1, mm;
+  int2 gg, ll;
+};
+
+__device__ __forceinline__ void zs_load(const ZIn& z, long b0, ZRaw& w) {
+  w.d0 = __ldg((const int4*)(z.depth + b0));
+  w.d1 = __ldg((const int4*)(z.depth + b0) + 1);
+  w.mm = __ldg((const int4*)(z.mq + b0));
+  w.gg = __ldg((const int2*)(z.gc + b0));
+  w.ll = __ldg((const int2*)(z.low_acgt + b0));
+}
+
+// One pass: a persistent block takes tiles of ZTILE bases in order
+// (``next_tile``, claimed a tile ahead, its loads issued while the current
+// tile is evaluated), loads each tile's depth, mq, gc and low_acgt once,
+// finds the sticky class of every base (a running maximum of idx * 2 +
+// class over the updating bases: thread, warp and block scans, then a
+// decoupled look-back over the earlier tiles' state words) and writes its
+// z: the (row, depth) table's z times the weight of its mapq (a table of
+// ZW values in shared memory), computed in place only past either table.
+__global__ void __launch_bounds__(ZT, ZMINB) zs_onepass(
+    const __grid_constant__ ZIn z, const double* base,
+    unsigned long long* status, int* next_tile, long ntiles, double* out) {
+  extern __shared__ double zsm[];
+  double* s_out = zsm;                     // [ZOUT]
+  double* s_w = s_out + ZOUT;              // [ZW]
+  int* s_rows = (int*)(s_w + ZW);          // [R * ZROW]
+  __shared__ long s_first, s_next;
+  __shared__ int s_warp[ZT / 32];
+  __shared__ int s_excl;
+  for (int i = threadIdx.x; i < ZW; i += ZT) s_w[i] = zs_weight(z, i);
+  for (int i = threadIdx.x; i < z.R * ZROW; i += ZT) s_rows[i] = z.rows[i];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_first = atomicAdd(next_tile, 1);
+  __syncthreads();
+  long tile = s_first;
+  ZRaw raw;
+  if ((tile + 1) * ZTILE <= z.n)
+    zs_load(z, tile * ZTILE + (long)threadIdx.x * ZI, raw);
+
+  while (tile < ntiles) {
+    const long b0 = tile * ZTILE + (long)threadIdx.x * ZI;
+    const bool full = (tile + 1) * ZTILE <= z.n;
+    // claim the next tile now; its id is read after the first barrier
+    if (threadIdx.x == 0) s_next = atomicAdd(next_tile, 1);
+    int dv[ZI], mv[ZI], gv[ZI], lv[ZI];
+    if (full) {
+      dv[0] = raw.d0.x; dv[1] = raw.d0.y; dv[2] = raw.d0.z; dv[3] = raw.d0.w;
+      dv[4] = raw.d1.x; dv[5] = raw.d1.y; dv[6] = raw.d1.z; dv[7] = raw.d1.w;
+      // unpacked by shifts (little-endian lanes), in registers
+      const unsigned mw[4] = {(unsigned)raw.mm.x, (unsigned)raw.mm.y,
+                              (unsigned)raw.mm.z, (unsigned)raw.mm.w};
+      const unsigned gw[2] = {(unsigned)raw.gg.x, (unsigned)raw.gg.y};
+      const unsigned lw[2] = {(unsigned)raw.ll.x, (unsigned)raw.ll.y};
+#pragma unroll
+      for (int j = 0; j < ZI; ++j) {
+        mv[j] = (int16_t)(mw[j >> 1] >> (16 * (j & 1)));
+        gv[j] = (int8_t)(gw[j >> 2] >> (8 * (j & 3)));
+        lv[j] = (int8_t)(lw[j >> 2] >> (8 * (j & 3)));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < ZI; ++j) {
+        const bool in = b0 + j < z.n;
+        dv[j] = in ? z.depth[b0 + j] : 0;
+        mv[j] = in ? z.mq[b0 + j] : 0;
+        gv[j] = in ? z.gc[b0 + j] : 0;
+        lv[j] = in ? z.low_acgt[b0 + j] : 1;   // not eligible
+      }
+    }
+
+    // definite class (0 high mapq, 1 low mapq with depth, -1 none), the
+    // eligibility, and the thread's running forward-fill state
+    int defz[ZI], pre[ZI];
+    bool elig[ZI];
+    int run = -1;
+#pragma unroll
+    for (int j = 0; j < ZI; ++j) {
+      const bool hi_mq = mv[j] >= z.min_mapq;
+      defz[j] = hi_mq ? 0 : (dv[j] > 0 ? 1 : -1);
+      const int ke = (hi_mq ? 0 : z.nb) + gv[j];
+      elig[j] = lv[j] == 0 && s_rows[ke * ZROW] > 1;
+      if (elig[j] && defz[j] >= 0) run = (int)((b0 + j) * 2 + defz[j]);
+      pre[j] = run;
+    }
+    int incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(ZFULL, incl, o);
+      if (lane >= o) incl = max(incl, v);
+    }
+    int texcl = __shfl_up_sync(ZFULL, incl, 1);
+    if (lane == 0) texcl = -1;
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();
+    const long next = s_next;
+    if ((next + 1) * ZTILE <= z.n)
+      zs_load(z, next * ZTILE + (long)threadIdx.x * ZI, raw);
+    int wexcl = -1, agg = -1;
+#pragma unroll
+    for (int w = 0; w < ZT / 32; ++w) {
+      const int v = s_warp[w];
+      if (w < warp) wexcl = max(wexcl, v);
+      agg = max(agg, v);
+    }
+    if (warp == 0) {
+      // an updating tile knows its inclusive state at once (its last
+      // update is the largest index so far); the others publish their
+      // aggregate, look back, then their inclusive state
+      if (lane == 0)
+        atomicExch(status + tile, agg >= 0 ? zs_word(2, agg)
+                                           : zs_word(1, -1));
+      int excl = -1;
+      for (long t = tile - 1; t >= 0; t -= 32) {
+        const long tt = t - lane;
+        int flag = 2, val = -1;
+        if (tt >= 0) {
+          unsigned long long w;
+          do {
+            w = *((volatile unsigned long long*)status + tt);
+          } while ((w >> 32) == 0);
+          flag = (int)(w >> 32);
+          val = (int)(unsigned)(w & 0xffffffffu) - 1;
+        }
+        const unsigned done = __ballot_sync(ZFULL, flag == 2);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        excl = max(excl, __reduce_max_sync(ZFULL, lane <= stop ? val : -1));
+        if (done) break;
+      }
+      if (lane == 0) {
+        s_excl = excl;
+        if (agg < 0) atomicExch(status + tile, zs_word(2, excl));
+      }
+    }
+    __syncthreads();
+    const int carry = max(s_excl, max(wexcl, texcl));
+
+#pragma unroll
+    for (int j = 0; j < ZI; ++j) {
+      const int fi = max(carry, pre[j]);
+      const int cls = defz[j] >= 0 ? defz[j] : (fi >= 0 ? (fi & 1) : 0);
+      const int k = cls * z.nb + gv[j];
+      const int* r = s_rows + k * ZROW;
+      const bool valid = b0 + j < z.n && elig[j] && r[0] > 0;
+      double bz = 0.0, w = 0.0;
+      if (valid) {
+        bz = dv[j] >= 0 && dv[j] < ZTW
+            ? __ldg(base + (long)k * ZTW + dv[j])
+            : zs_base(z, r, k, dv[j], z.pv_p, z.pv_sd);
+        w = mv[j] >= 0 && mv[j] < ZW ? s_w[mv[j]] : zs_weight(z, mv[j]);
+      }
+      s_out[zpad(threadIdx.x * ZI + j)] = valid ? w * bz : 0.0;
+    }
+    __syncthreads();
+    const long t0 = tile * ZTILE;
+    for (int e = threadIdx.x; e < ZTILE; e += ZT)
+      if (t0 + e < z.n) out[t0 + e] = s_out[zpad(e)];
+    tile = next;
+  }
 }
 
 // Per-position flags of the seed walk, one byte each (ops/cnv_device.py
@@ -762,38 +901,68 @@ const char* gt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// ``block_last`` and ``carry`` are int64 scratch of ceil(n / 256) entries.
-int gt_zscores(void* depth, void* mq, void* gc, void* low_acgt, void* w,
-               void* mat, void* lens, void* ave, void* std, void* pv_p,
-               void* pv_sd, long n, long maxn, int P, int nb, int min_mapq,
-               double dup_thr_factor, int ranks, void* block_last,
-               void* carry, void* out, void* stream) {
+// Bytes of the scratch ``gt_zscores`` needs for n bases and R bin rows:
+// the tile counter, a state word per tile and the (row, depth) z table.
+long gt_zscores_scratch_bytes(long n, int R) {
+  return 16 + 8 * ((n + ZTILE - 1) / ZTILE) + 8 * (long)R * ZTW;
+}
+
+// z of the n bases into ``out`` (f64 [n], any alignment); the per-base
+// inputs 16-byte aligned; ``scratch`` holds gt_zscores_scratch_bytes(n, R)
+// bytes. Two launches (the (row, depth) table, then one pass of persistent
+// blocks over the bases) and one memset of the tile states.
+int gt_zscores(void* depth, void* mq, void* gc, void* low_acgt, void* rows,
+               void* cnt, void* tail, void* ave, void* std, void* pv_p,
+               void* pv_sd, long n, int R, int P, int nb,
+               int min_mapq, double mf, double omf, double dup_thr_factor,
+               int ranks, void* scratch, void* out, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   ZIn z;
   z.depth = (const int32_t*)depth;
   z.mq = (const int16_t*)mq;
   z.gc = (const int8_t*)gc;
   z.low_acgt = (const int8_t*)low_acgt;
-  z.w = (const double*)w;
-  z.mat = (const int64_t*)mat;
-  z.lens = (const int64_t*)lens;
+  z.rows = (const int32_t*)rows;
+  z.cnt = (const int32_t*)cnt;
+  z.tail = (const int32_t*)tail;
   z.ave = (const double*)ave;
   z.std = (const double*)std;
   z.pv_p = (const double*)pv_p;
   z.pv_sd = (const double*)pv_sd;
   z.n = n;
-  z.maxn = maxn;
+  z.R = R;
   z.P = P;
   z.nb = nb;
   z.min_mapq = min_mapq;
+  z.mf = mf;
+  z.omf = omf;
   z.dup_thr_factor = dup_thr_factor;
   z.ranks = ranks;
   cudaStream_t s = (cudaStream_t)stream;
-  const int nblk = blocks_for(n);
-  zs_block_last<<<nblk, BLOCK, 0, s>>>(z, (int64_t*)block_last);
-  exclusive_cummax<<<1, SCAN_THREADS, 0, s>>>(
-      (const int64_t*)block_last, (int64_t*)carry, nblk);
-  zs_eval<<<nblk, BLOCK, 0, s>>>(z, (const int64_t*)carry, (double*)out);
+  const long ntiles = (n + ZTILE - 1) / ZTILE;
+  int* next_tile = (int*)scratch;
+  unsigned long long* status = (unsigned long long*)((char*)scratch + 16);
+  double* base = (double*)((char*)scratch + 16 + 8 * ntiles);
+  const size_t smem = sizeof(double) * (ZOUT + ZW)
+                      + sizeof(int) * ZROW * (size_t)R;
+  cudaError_t e = cudaFuncSetAttribute(
+      zs_onepass, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, zs_onepass,
+                                                      ZT, smem);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(scratch, 0, 16 + 8 * ntiles, s);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (R > 0) zs_table<<<dim3(R, ZTW / 256), 256, 0, s>>>(z, base);
+  const long grid = (long)sms * per_sm < ntiles ? (long)sms * per_sm
+                                                 : ntiles;
+  zs_onepass<<<(int)grid, ZT, smem, s>>>(z, base, status, next_tile, ntiles,
+                                         (double*)out);
   return (int)cudaGetLastError();
 }
 

@@ -5,10 +5,17 @@
 // Replaces grom_tpu/ops/sv_device.py:31 DeviceSvScorer, which jits
 // grom_tpu/call/sv_screen.py:121 score_sv_entries and :93 binom_pair_vec.
 //
-// What bounds it on an H100: one thread per entry, a handful of int64
-// divisions and three gathers into two 1001 x 1001 f64 tables (8 MB each,
-// L2-resident after the first window). A detect window holds thousands of
-// entries, so a launch is bounded by its fixed cost, not by the card.
+// What bounds it on an H100: one thread per entry, the nine int64 entry
+// columns read once (one packed buffer, uploaded once a window), three
+// gathers into two 1001 x 1001 f64 tables (8 MB each, L2-resident after the
+// first window) and one packed output (binom, hez, kind, accept) copied
+// back once. A detect window holds at most tens of thousands of entries,
+// so a launch is bounded by its fixed cost and the call by the host's
+// packing and its one copy each way, not by the card. The divisions are
+// numpy's flooring ``//``: where both operands fit in 32 bits (every
+// count of a real window) they run as 32-bit divisions, which the card
+// emulates in far fewer instructions than 64-bit ones; the scaled-trials
+// quotients are computed only for entries with rd > mt.
 //
 // Exactness: every output equals numpy's score_sv_entries bit for bit.
 //   * numpy's ``//`` floors (and gives 0 for a zero divisor); C's ``/``
@@ -26,17 +33,11 @@
 namespace {
 
 constexpr int BLOCK = 256;
+constexpr int N_COLS = 9;   // pos, etype, count, rs, re, rd, weak_f,
+                            // weak_r, ctx_f_here (ops/sv_device.py)
 
 struct SvIn {
-  const int64_t* pos;
-  const int32_t* etype;
-  const int64_t* count;
-  const int64_t* rs;
-  const int64_t* re;
-  const int64_t* rd;
-  const int64_t* weak_f;
-  const int64_t* weak_r;
-  const int64_t* ctx_f;
+  const int64_t* e;         // [N_COLS, n], row-major
   const double* mq_tab;     // [rows, cols], row-major
   const double* hez_tab;    // [rows, cols]
   const int32_t* kind_tab;  // [n_etype]: etype -> action kind
@@ -50,8 +51,19 @@ struct SvIn {
   double thr1;
 };
 
+__device__ __forceinline__ bool fits32(int64_t a) {
+  return a == (int64_t)(int32_t)a;
+}
+
+// numpy's a // b: floors, and 0 for b == 0
 __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
   if (b == 0) return 0;
+  if (fits32(a) && fits32(b) && !(a == INT32_MIN && b == -1)) {
+    const int32_t x = (int32_t)a, y = (int32_t)b;
+    int32_t q = x / y;
+    if ((x % y != 0) && ((x < 0) != (y < 0))) --q;
+    return q;
+  }
   int64_t q = a / b;
   if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
   return q;
@@ -70,43 +82,47 @@ __device__ __forceinline__ bool ratio_gate(int64_t weak, int64_t strong) {
   return __fdiv_rn((float)weak, (float)strong) <= 0.25f;
 }
 
-__global__ void sv_score_kernel(SvIn s, int32_t* kind, uint8_t* accept,
-                                double* binom_out, double* hez_out) {
+__global__ void sv_score_kernel(SvIn s, double* binom_out, double* hez_out,
+                                int32_t* kind, uint8_t* accept) {
   const long i = (long)blockIdx.x * BLOCK + threadIdx.x;
   if (i >= s.n) return;
-  const int et = s.etype[i];
-  const int ei = et < 0 ? et + s.n_etype : et;
+  const int64_t* e = s.e + i;
+  const long n = s.n;
+  const int64_t p = e[0];
+  const int64_t et = e[n];
+  const int64_t strong = e[2 * n];
+  const int64_t rd = e[5 * n];
+  const int64_t wf = e[6 * n];
+  const int ei = (int)(et < 0 ? et + s.n_etype : et);
   const bool rev = s.rev_tab[ei] != 0;
-  const int64_t p = s.pos[i];
-  const int64_t strong = s.count[i];
-  const int64_t rd = s.rd[i];
-  const int64_t wf = s.weak_f[i];
-  const int64_t weak = rev ? s.weak_r[i] : wf;
+  const int64_t weak = rev ? e[7 * n] : wf;
 
-  const bool md_ok = floordiv(strong, s.af) >= s.md;
-  const bool geom_ok = rev ? (s.rs[i] + s.lseq - p < s.mean)
-                           : (p - s.re[i] < s.mean);
-
-  // binom_pair_vec
-  const bool big = rd > s.mt;
-  const int64_t den = s.af * (rd > 1 ? rd : 1);
-  const int64_t row = big ? s.mt : rd;
-  const int64_t k_big = floordiv(strong * s.mt, den);
   const int64_t k_small = floordiv(strong, s.af);
-  const int64_t col = big ? (k_big < s.mt ? k_big : s.mt)
-                          : (k_small < s.mt ? k_small : s.mt);
-  const double binom = gather(s.mq_tab, s, row, col);
+  const bool md_ok = k_small >= s.md;
+  const bool geom_ok = rev ? (e[3 * n] + s.lseq - p < s.mean)
+                           : (p - e[4 * n] < s.mean);
 
+  // binom_pair_vec; the scaled-trials quotients only where rd > mt
+  const bool big = rd > s.mt;
+  const int64_t row = big ? s.mt : rd;
   const int64_t k2 = floordiv(strong + weak, s.af);
-  const bool k2_lt = k2 < rd;
-  int64_t k2i = floordiv((strong + weak) * s.mt, den);
-  k2i = k2i < s.mt ? k2i : s.mt;
-  const int64_t hez_col = big ? (k2_lt ? k2i : s.mt) : (k2_lt ? k2 : rd);
+  int64_t col, hez_col;
+  if (big) {
+    const int64_t den = s.af * (rd > 1 ? rd : 1);
+    const int64_t k_big = floordiv(strong * s.mt, den);
+    const int64_t k2i = floordiv((strong + weak) * s.mt, den);
+    col = k_big < s.mt ? k_big : s.mt;
+    hez_col = k2 < rd ? (k2i < s.mt ? k2i : s.mt) : s.mt;
+  } else {
+    col = k_small < s.mt ? k_small : s.mt;
+    hez_col = k2 < rd ? k2 : rd;
+  }
+  const double binom = gather(s.mq_tab, s, row, col);
   const double hez_val = gather(s.hez_tab, s, row, hez_col);
 
   bool gate;
   if (et == s.e_ctx_r && !big)
-    gate = ratio_gate(wf, s.ctx_f[i]);
+    gate = ratio_gate(wf, e[8 * n]);
   else
     gate = ratio_gate(weak, strong);
 
@@ -124,27 +140,17 @@ const char* gt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Inputs int64 [n] (etype int32 [n]); tables f64 [rows, cols]; kind/rev
-// tables int32 [n_etype]. Outputs: kind int32, accept u8 (0/1), binom and
-// hez f64, all [n]. Every etype must lie in [-n_etype, n_etype).
-int gt_sv_score(void* pos, void* etype, void* count, void* rs, void* re,
-                void* rd, void* weak_f, void* weak_r, void* ctx_f,
-                void* mq_tab, void* hez_tab, long rows, long cols,
-                void* kind_tab, void* rev_tab, int n_etype, int e_ctx_r,
-                long n, long af, long mt, long md, double thr1, long mean,
-                long lseq, void* kind, void* accept, void* binom, void* hez,
-                void* stream) {
+// ``entries`` int64 [9, n] (ops/sv_device.py ENTRY_KEYS, row-major);
+// tables f64 [rows, cols]; kind/rev tables int32 [n_etype]. ``out`` gets
+// the packed result: binom f64 [n], hez f64 [n], kind int32 [n], accept
+// u8 (0/1) [n], back to back. Every etype must lie in [-n_etype, n_etype).
+int gt_sv_score(void* entries, long n, void* mq_tab, void* hez_tab,
+                long rows, long cols, void* kind_tab, void* rev_tab,
+                int n_etype, int e_ctx_r, long af, long mt, long md,
+                double thr1, long mean, long lseq, void* out, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   SvIn s;
-  s.pos = (const int64_t*)pos;
-  s.etype = (const int32_t*)etype;
-  s.count = (const int64_t*)count;
-  s.rs = (const int64_t*)rs;
-  s.re = (const int64_t*)re;
-  s.rd = (const int64_t*)rd;
-  s.weak_f = (const int64_t*)weak_f;
-  s.weak_r = (const int64_t*)weak_r;
-  s.ctx_f = (const int64_t*)ctx_f;
+  s.e = (const int64_t*)entries;
   s.mq_tab = (const double*)mq_tab;
   s.hez_tab = (const double*)hez_tab;
   s.kind_tab = (const int32_t*)kind_tab;
@@ -160,9 +166,13 @@ int gt_sv_score(void* pos, void* etype, void* count, void* rs, void* re,
   s.mean = mean;
   s.lseq = lseq;
   s.thr1 = thr1;
+  double* binom = (double*)out;
+  double* hez = binom + n;
+  int32_t* kind = (int32_t*)(hez + n);
+  uint8_t* accept = (uint8_t*)(kind + n);
   const int blocks = (int)((n + BLOCK - 1) / BLOCK);
   sv_score_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      s, (int32_t*)kind, (uint8_t*)accept, (double*)binom, (double*)hez);
+      s, binom, hez, kind, accept);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,7 @@ costs speed (GROM_TPU_NO_NATIVE=1 forces the fallbacks).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -37,6 +38,7 @@ _c_long_p = ctypes.POINTER(ctypes.c_long)
 _u8_p = ctypes.POINTER(ctypes.c_uint8)
 
 
+@functools.cache
 def _have_libdeflate() -> bool:
     """native/Makefile's probe: does ``cc`` link a program against
     libdeflate?"""
@@ -50,10 +52,9 @@ def _have_libdeflate() -> bool:
     return r.returncode == 0
 
 
-def _build() -> Optional[str]:
-    """Path of the built library, compiling it unless its hashed build
-    exists; None when the sources or the compiler are missing or the
-    build fails."""
+def _recipe():
+    """(sources, cc flags, libraries, path of the hashed library) for this
+    host; None when a source is missing."""
     srcs = [os.path.join(_SRC_DIR, f) for f in SOURCES]
     if not all(os.path.exists(s) for s in srcs):
         return None
@@ -66,6 +67,24 @@ def _build() -> Optional[str]:
         with open(s, "rb") as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, "grom_native-%s.so" % h.hexdigest()[:16])
+    return srcs, flags, libs, so
+
+
+def library_path() -> Optional[str]:
+    """Path of the hashed library for this host's sources and flags (it
+    may not be built yet); None when a source is missing. Builds nothing."""
+    r = _recipe()
+    return None if r is None else r[3]
+
+
+def _build() -> Optional[str]:
+    """Path of the built library, compiling it unless its hashed build
+    exists; None when the sources or the compiler are missing or the
+    build fails."""
+    r = _recipe()
+    if r is None:
+        return None
+    srcs, flags, libs, so = r
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)

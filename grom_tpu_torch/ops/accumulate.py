@@ -150,9 +150,9 @@ class SpanIndex:
 
 def pack_arrays(arrays: dict, dtypes: dict, device) -> dict:
     """Views on ``device``, keyed as ``dtypes`` (name -> torch dtype), of
-    the numpy ``arrays`` (any integer or bool dtype): packed into one host
-    buffer at 16-byte aligned offsets and uploaded in one copy. For a CUDA
-    device the host buffer is pinned and the copy is not waited for:
+    the numpy ``arrays`` (1-D, any numeric or bool dtype): packed into one
+    host buffer at 16-byte aligned offsets and uploaded in one copy. For a
+    CUDA device the host buffer is pinned and the copy is not waited for:
     torch's caching host allocator hands the pinned block out again only
     once the copy out of it has finished."""
     dev = torch.device(device)

@@ -6,8 +6,10 @@ Each kernel has a wrapper that dispatches on the device of its inputs —
 CUDA tensors go to ``csrc/cnv.cu``, CPU tensors to the plain torch version
 beside it — and both are held to the host engine's bits:
 
-* ``zscores``: the midrank z of every base, bitwise equal to the host and to
-  grom_tpu's ``zscores_device`` under x64.
+* ``zscores``: the midrank z of every base with its mapq weight, bitwise
+  equal to the host and to grom_tpu's ``zscores_device`` under x64; one
+  pass over the per-base inputs (``ZInputs``, one upload), midrank counts
+  from per-row count tables (``count_tables``) instead of row searches.
 * ``seed_eval``: first-fail offset, first-window score and grow-phase
   totals of every (seed, outer class), accumulated sequentially in f64,
   returned packed in one int64 [5, NS] tensor (``unpack_outcomes``).
@@ -39,31 +41,70 @@ _BLOCK = 256
 NULL_BATCH = 1024
 
 
-def build_bin_matrix(hi_arr: List[np.ndarray], lo_arr: List[np.ndarray],
-                     nb: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Pad the per-(class, gc) sorted depth distributions into a dense
-    [2*nb, maxn] int64 matrix (sentinel int64-max) + lengths [2*nb]."""
-    arrs = list(hi_arr) + list(lo_arr)
-    lens = np.array([len(a) for a in arrs], np.int64)
-    maxn = max(1, int(lens.max()) if len(lens) else 1)
-    mat = np.full((2 * nb, maxn), np.iinfo(np.int64).max, np.int64)
-    for i, a in enumerate(arrs):
-        if len(a):
-            mat[i, :len(a)] = a
-    return mat, lens
+# the widest count table of a bin row: keys past it bisect the row's tail
+COUNT_CAP = 1 << 12
 
 
 class CnvTables(NamedTuple):
-    """The z stage's lookup tables on one device: ``mat`` int64 [2 nb,
-    maxn] (rows sorted ascending over their length), ``lens`` int64
-    [2 nb], ``ave``/``std`` f64 [2 nb], ``pv_p`` (non-decreasing) and
-    ``pv_sd`` f64 [P] (the pval2sd table)."""
-    mat: torch.Tensor
-    lens: torch.Tensor
+    """The z stage's tables on one device (views of one upload,
+    ``state.cnv_tables``). Per (class, GC) bin row k of the 2 nb rows,
+    ``rows`` int32 [2 nb, 5]: the row's length nk, the width of its count
+    table, the table's offset in ``cnt``, its tail's offset in ``tail`` and
+    the tail's length. ``cnt`` int32: ``cnt[off + v]`` = #(row <= v) for v
+    in [0, width), width = min(largest value + 1, cap). ``tail`` int32: the
+    row's values at or above its width, ascending (none unless the row's
+    largest value reaches the cap). ``ave``/``std`` f64 [2 nb];
+    ``pv_p`` (non-decreasing) and ``pv_sd`` f64 [P], the pval2sd table."""
+    rows: torch.Tensor
+    cnt: torch.Tensor
+    tail: torch.Tensor
     ave: torch.Tensor
     std: torch.Tensor
     pv_p: torch.Tensor
     pv_sd: torch.Tensor
+
+
+TABLE_DTYPES = dict(rows=torch.int32, cnt=torch.int32, tail=torch.int32,
+                    ave=torch.float64, std=torch.float64,
+                    pv_p=torch.float64, pv_sd=torch.float64)
+
+
+class ZInputs(NamedTuple):
+    """The z stage's per-base inputs over its block [n] (views of one
+    upload, ``state.z_inputs``): depth int32, mq int16, gc int8 (the GC
+    bin), low_acgt int8 (0: the base passes the ACGT gate)."""
+    depth: torch.Tensor
+    mq: torch.Tensor
+    gc: torch.Tensor
+    low_acgt: torch.Tensor
+
+
+ZIN_DTYPES = dict(depth=torch.int32, mq=torch.int16, gc=torch.int8,
+                  low_acgt=torch.int8)
+
+
+def count_tables(arrs: List[np.ndarray], cap: int = COUNT_CAP) -> dict:
+    """The count tables of the bin rows ``arrs`` (each sorted ascending,
+    non-negative; hi-mapq rows then lo-mapq rows), as ``CnvTables``'s
+    ``rows``, ``cnt`` and ``tail`` (numpy int32)."""
+    rows = np.zeros((len(arrs), 5), np.int64)
+    cnts, tails = [], []
+    c_off = t_off = 0
+    for k, a in enumerate(arrs):
+        a = np.asarray(a)
+        nk = len(a)
+        width = min(int(a[-1]) + 1, cap) if nk else 0
+        cnt = np.searchsorted(a, np.arange(width), side="right")
+        tail = a[np.searchsorted(a, width, side="left"):]
+        rows[k] = (nk, width, c_off, t_off, len(tail))
+        cnts.append(cnt)
+        tails.append(tail)
+        c_off += width
+        t_off += len(tail)
+    if c_off >= 1 << 31 or t_off >= 1 << 31:
+        raise ValueError("count tables past the int32 offsets")
+    cat = lambda xs: (np.concatenate(xs) if xs else np.zeros(0, np.int64))
+    return dict(rows=rows.reshape(-1), cnt=cat(cnts), tail=cat(tails))
 
 
 class SeedInputs(NamedTuple):
@@ -117,7 +158,9 @@ def _lib() -> ctypes.CDLL:
     P, I, Lg, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, \
         ctypes.c_double
     _build.bind(lib, "gt_zscores",
-                [P] * 11 + [Lg, Lg, I, I, I, D, I, P, P, P, P])
+                [P] * 11 + [Lg, I, I, I, I, D, D, D, I, P, P, P])
+    lib.gt_zscores_scratch_bytes.restype = Lg
+    lib.gt_zscores_scratch_bytes.argtypes = [Lg, I]
     _build.bind(lib, "gt_seed_eval",
                 [P] * 3 + [Lg, Lg, Lg, D, Lg, P, P, Lg, P, P, P])
     lib.gt_seed_scratch_bytes.restype = Lg
@@ -146,112 +189,155 @@ def _dispatch(x: torch.Tensor, name: str) -> str:
 # z-scores
 # ---------------------------------------------------------------------------
 
-def zscores_plain(depth, mq, gc, low_acgt, w, tables: CnvTables, nb: int,
-                  min_mapq: int, dup_thr_factor: float, ranks: bool
-                  ) -> torch.Tensor:
-    """Per-base z over one block in plain torch. ``depth`` int32, ``mq``
-    int16, ``gc`` int8, ``low_acgt`` int8, ``w`` f64 (the host-side mapq
-    weight), all [n]. Returns f64 [n]."""
-    dev = depth.device
+def _count_le(tables: CnvTables, r: torch.Tensor, key: torch.Tensor
+              ) -> torch.Tensor:
+    """#(row <= key) per query, from the count tables: ``r`` int64 [m, 5]
+    the queries' row entries (nk >= 1), ``key`` int64 [m]."""
+    nk, width, c_off, t_off, t_len = r.unbind(1)
+    inside = (key >= 0) & (key < width)
+    at = c_off + torch.minimum(key.clamp(min=0), width - 1)
+    out = torch.where(inside, tables.cnt[at].to(torch.int64), 0)
+    past = key >= width
+    out = torch.where(past, nk - t_len, out)
+    # keys past a capped table bisect the row's tail (a row with a tail
+    # is the only one at its tail offset)
+    far = torch.nonzero(past & (t_len > 0)).squeeze(1)
+    for ro in torch.unique(t_off[far]).tolist():
+        sel = far[t_off[far] == ro]
+        tail = tables.tail[ro:ro + int(t_len[sel[0]])].to(torch.int64)
+        out[sel] += torch.searchsorted(tail, key[sel], right=True)
+    return out
+
+
+def zscores_plain(zin: ZInputs, tables: CnvTables, nb: int, min_mapq: int,
+                  mapq_factor: float, dup_thr_factor: float, ranks: bool,
+                  out=None) -> torch.Tensor:
+    """Per-base z over one block in plain torch, as the kernel computes
+    it: the sticky class as a running maximum of idx * 2 + class, midrank
+    counts from the count tables, the mapq weight in numpy's order (the
+    kernel evaluates the z of each (bin row, depth) pair once and each
+    mapq's weight once, the same operations on the same values). Returns
+    f64 [n] (written into ``out`` when given)."""
+    dev = zin.depth.device
     i64, f64 = torch.int64, torch.float64
-    n = depth.shape[0]
-    d = depth.to(i64)
-    m = mq.to(i64)
-    g = gc.to(i64)
-    lens = tables.lens
+    n = zin.depth.shape[0]
+    d = zin.depth.to(i64)
+    m = zin.mq.to(i64)
+    g = zin.gc.to(i64)
+    rows = tables.rows.view(-1, 5).to(i64)
+    lens = rows[:, 0]
     hi_mq = m >= min_mapq
     defz = torch.where(hi_mq, 0, torch.where(d > 0, 1, -1))
     k_elig = torch.where(hi_mq, 0, nb) + g
-    eligible = (low_acgt == 0) & (lens[k_elig] > 1)
-    # sticky class: forward fill of defz at eligible definite positions
+    eligible = (zin.low_acgt == 0) & (lens[k_elig] > 1)
+    # sticky class: forward fill of defz at eligible definite positions,
+    # the class carried in the low bit of the filled index
     idx = torch.arange(n, device=dev)
-    fi = torch.cummax(torch.where(eligible & (defz >= 0), idx, -1), 0).values
-    last_cls = torch.where(fi >= 0, defz[fi.clamp(min=0)], 0)
+    fi = torch.cummax(torch.where(eligible & (defz >= 0), idx * 2 + defz,
+                                  -1), 0).values
+    last_cls = torch.where(fi >= 0, fi & 1, 0)
     cls = torch.where(defz >= 0, defz, last_cls)
     k = cls * nb + g
     nk = lens[k]
     valid = eligible & (nk > 0)
-    av = tables.ave[k]
-    dd = d.to(f64)
-    below = dd < av
-    clamp = dup_thr_factor * av
-    if ranks:
-        key_l = torch.where(dd > clamp, clamp.to(i64), d)
-        # per-row searches: each base searches its (class, gc) row
-        ss_d_r = torch.zeros(n, dtype=i64, device=dev)
-        ss_d_l = torch.zeros(n, dtype=i64, device=dev)
-        ss_k_l = torch.zeros(n, dtype=i64, device=dev)
-        for kk in torch.unique(k[valid]).tolist():
-            sel = torch.nonzero(valid & (k == kk)).squeeze(1)
-            row = tables.mat[kk, :int(lens[kk])].contiguous()
-            ss_d_r[sel] = torch.searchsorted(row, d[sel], right=True)
-            ss_d_l[sel] = torch.searchsorted(row, d[sel], right=False)
-            ss_k_l[sel] = torch.searchsorted(row, key_l[sel], right=False)
+    z = torch.zeros(n, dtype=f64, device=dev)
+    v = torch.nonzero(valid).squeeze(1)
+    if v.numel():
+        kv, dv, nv = k[v], d[v], nk[v]
+        av = tables.ave[kv]
+        dd = dv.to(f64)
+        below = dd < av
+        clamp = dup_thr_factor * av
+        if ranks:
+            key_l = torch.where(dd > clamp, clamp.to(i64), dv)
+            rv = rows[kv]
+            cle = lambda key: _count_le(tables, rv, key)
 
-        def fx(s):
-            return torch.where((nk == 2) & (s == 0), 1, s)
+            def fx(c):
+                return torch.where((nv == 2) & (c == 0), 1, c)
 
-        bi = torch.where(below, fx(ss_d_r), nk - fx(ss_k_l))
-        bi2 = torch.where(below, fx(ss_d_l), nk - fx(ss_d_r))
-        di = torch.where(bi <= 0, 0.5, bi.to(f64))
-        di2 = torch.where(bi2 <= 0, 0.5, bi2.to(f64))
-        prob = (di + di2) / (2.0 * nk.to(f64))
-        P = tables.pv_p.shape[0]
-        pi = torch.searchsorted(tables.pv_p, prob, right=True).clamp(0, P - 1)
-        base = torch.where(below, tables.pv_sd[pi], -tables.pv_sd[pi])
-    else:
-        sb = tables.std[k]
-        nz = sb != 0.0
-        plain = torch.where(nz, (av - dd) / sb, 0.0)
-        clamped = torch.where(nz, (dup_thr_factor - 1.0) * (-av) / sb, 0.0)
-        base = torch.where(below | ~(dd > clamp), plain, clamped)
-    return torch.where(valid, w * base, 0.0)
+            bi = torch.where(below, fx(cle(dv)), nv - fx(cle(key_l - 1)))
+            bi2 = torch.where(below, fx(cle(dv - 1)), nv - fx(cle(dv)))
+            di = torch.where(bi <= 0, 0.5, bi.to(f64))
+            di2 = torch.where(bi2 <= 0, 0.5, bi2.to(f64))
+            prob = (di + di2) / (2.0 * nv.to(f64))
+            P = tables.pv_p.shape[0]
+            pi = torch.searchsorted(tables.pv_p, prob,
+                                    right=True).clamp(0, P - 1)
+            base = torch.where(below, tables.pv_sd[pi], -tables.pv_sd[pi])
+        else:
+            sb = tables.std[kv]
+            nz = sb != 0.0
+            plain = torch.where(nz, (av - dd) / sb, 0.0)
+            clamped = torch.where(nz, (dup_thr_factor - 1.0) * (-av) / sb,
+                                  0.0)
+            base = torch.where(below | ~(dd > clamp), plain, clamped)
+        mv = m[v]
+        omf = 1.0 - mapq_factor
+        w = torch.where(mv >= min_mapq,
+                        mapq_factor + (omf * (mv - min_mapq).to(f64)) / 40.0,
+                        mapq_factor)
+        z[v] = w * base
+    if out is None:
+        return z
+    out.copy_(z)
+    return out
 
 
-def _zscores_cuda(depth, mq, gc, low_acgt, w, tables: CnvTables, nb: int,
-                  min_mapq: int, dup_thr_factor: float, ranks: bool
-                  ) -> torch.Tensor:
-    dev = depth.device
-    for name, x, dt in (("depth", depth, torch.int32),
-                        ("mq", mq, torch.int16), ("gc", gc, torch.int8),
-                        ("low_acgt", low_acgt, torch.int8),
-                        ("w", w, torch.float64),
-                        ("mat", tables.mat, torch.int64),
-                        ("lens", tables.lens, torch.int64),
-                        ("ave", tables.ave, torch.float64),
-                        ("std", tables.std, torch.float64),
-                        ("pv_p", tables.pv_p, torch.float64),
-                        ("pv_sd", tables.pv_sd, torch.float64)):
+def _zscores_cuda(zin: ZInputs, tables: CnvTables, nb: int, min_mapq: int,
+                  mapq_factor: float, dup_thr_factor: float, ranks: bool,
+                  out=None) -> torch.Tensor:
+    dev = zin.depth.device
+    n = int(zin.depth.shape[0])
+    for name, dt in ZIN_DTYPES.items():
+        x = getattr(zin, name)
         _require(name, x, dt, dev)
+        if x.shape != (n,) or x.data_ptr() % 16:
+            raise ValueError("%s must be a 16-byte aligned [%d] tensor"
+                             % (name, n))
+    for name, dt in TABLE_DTYPES.items():
+        _require(name, getattr(tables, name), dt, dev)
+    R = int(tables.ave.shape[0])
+    P = int(tables.pv_p.shape[0])
+    if tables.rows.numel() != 5 * R or R != 2 * nb:
+        raise ValueError("the tables must hold 2 nb = %d bin rows" % (2 * nb))
+    if n >= 1 << 30:
+        raise ValueError("a z block of %d bases is past the kernel's "
+                         "int32 indices" % n)
+    if out is None:
+        out = torch.empty(n, dtype=torch.float64, device=dev)
+    elif (out.dtype != torch.float64 or out.device != dev
+          or out.shape != (n,) or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous f64 [%d] tensor on %s"
+                         % (n, dev))
     lib = _lib()
-    n = int(depth.shape[0])
-    out = torch.empty(n, dtype=torch.float64, device=dev)
-    nblk = max((n + _BLOCK - 1) // _BLOCK, 1)
-    block_last = torch.empty(nblk, dtype=torch.int64, device=dev)
-    carry = torch.empty(nblk, dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.gt_zscores_scratch_bytes(n, R),
+                          dtype=torch.uint8, device=dev)
     _build.check(lib, lib.gt_zscores(
-        depth.data_ptr(), mq.data_ptr(), gc.data_ptr(), low_acgt.data_ptr(),
-        w.data_ptr(), tables.mat.data_ptr(), tables.lens.data_ptr(),
-        tables.ave.data_ptr(), tables.std.data_ptr(), tables.pv_p.data_ptr(),
-        tables.pv_sd.data_ptr(), n, int(tables.mat.shape[1]),
-        int(tables.pv_p.shape[0]), nb, min_mapq, float(dup_thr_factor),
-        1 if ranks else 0, block_last.data_ptr(), carry.data_ptr(),
-        out.data_ptr(), _build.stream_ptr(dev)), "zscores")
+        zin.depth.data_ptr(), zin.mq.data_ptr(), zin.gc.data_ptr(),
+        zin.low_acgt.data_ptr(), tables.rows.data_ptr(),
+        tables.cnt.data_ptr(), tables.tail.data_ptr(), tables.ave.data_ptr(),
+        tables.std.data_ptr(), tables.pv_p.data_ptr(),
+        tables.pv_sd.data_ptr(), n, R, P, nb, min_mapq, float(mapq_factor),
+        1.0 - float(mapq_factor), float(dup_thr_factor), 1 if ranks else 0,
+        scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(dev)),
+        "zscores")
     _build.LAUNCHES["zscores"] += 1
     return out
 
 
-def zscores(depth, mq, gc, low_acgt, w, tables: CnvTables, nb: int,
-            min_mapq: int, dup_thr_factor: float, ranks: bool
-            ) -> torch.Tensor:
-    """Per-base z over one block: the CUDA kernel for CUDA tensors,
+def zscores(zin: ZInputs, tables: CnvTables, nb: int, min_mapq: int,
+            mapq_factor: float, dup_thr_factor: float, ranks: bool,
+            out=None) -> torch.Tensor:
+    """Per-base z over one block, mapq weight included (f64 [n], written
+    into ``out`` when given): the CUDA kernel for CUDA tensors,
     ``zscores_plain`` for CPU tensors."""
-    if _dispatch(depth, "zscores") == "cuda":
-        with torch.cuda.device(depth.device):
-            return _zscores_cuda(depth, mq, gc, low_acgt, w, tables, nb,
-                                 min_mapq, dup_thr_factor, ranks)
-    return zscores_plain(depth, mq, gc, low_acgt, w, tables, nb, min_mapq,
-                         dup_thr_factor, ranks)
+    if _dispatch(zin.depth, "zscores") == "cuda":
+        with torch.cuda.device(zin.depth.device):
+            return _zscores_cuda(zin, tables, nb, min_mapq, mapq_factor,
+                                 dup_thr_factor, ranks, out)
+    return zscores_plain(zin, tables, nb, min_mapq, mapq_factor,
+                         dup_thr_factor, ranks, out)
 
 
 # ---------------------------------------------------------------------------

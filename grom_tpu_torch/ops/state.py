@@ -7,15 +7,17 @@ the same values) go through these converters:
   ``__graft_entry__.tile_args_from_fixture`` builds it for
   ``tile_kernel_core``, with the pads stripped to runtime sizes and
   packed into one buffer as ``tile_inputs`` packs a tile;
-* ``cnv_tables``: the CNV bin matrix, ``bin_len``, ``ave``, ``std`` and the
-  pval2sd table, checked for the order the kernels' binary searches need;
+* ``cnv_tables``: the count tables of the CNV bin rows, ``ave``, ``std``
+  and the pval2sd table, checked for the order and range they need, in one
+  upload; ``z_inputs``: the z stage's per-base inputs, in one upload;
 * ``span_inputs``: a run's M-spans and reads as ``rd_scatter`` inputs, in
   one upload;
 * ``cell_deltas``: one mesh cell's slice of the rd endpoint deltas
   (parallel/pipeline.py ``endpoint_deltas``), cell-relative: the host
   reference that the tests hold ``rd_scatter`` to;
 * ``sv_tables`` / ``sv_entries``: the SV scorer's binomial tables and etype
-  index tables, and one window's entry arrays, for ``sv_score``;
+  index tables, and one window's entry arrays in one int64 [9, n] upload,
+  for ``sv_score``;
 * ``to_device``: any numpy array as a contiguous tensor on a device.
 """
 
@@ -24,11 +26,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from grom_tpu_torch.ops.accumulate import (TileInputs, pack_arrays,
                                             pack_tile, screen_threshold,
                                             to_device)
-from grom_tpu_torch.ops.cnv_device import CnvTables
+from grom_tpu_torch.ops.cnv_device import (COUNT_CAP, TABLE_DTYPES,
+                                            ZIN_DTYPES, CnvTables, ZInputs,
+                                            count_tables)
 from grom_tpu_torch.ops.rd_depth import SPAN_DTYPES, Spans
 from grom_tpu_torch.ops.sv_device import ENTRY_KEYS, SvTables
 
@@ -59,25 +64,36 @@ def tile_from_args(args: tuple, statics: dict, device
     return t, params
 
 
-def cnv_tables(bin_mat: np.ndarray, bin_len: np.ndarray, ave: np.ndarray,
-               std: np.ndarray, pv_p: np.ndarray, pv_sd: np.ndarray,
-               device) -> CnvTables:
-    """The z stage's tables on ``device``. Raises unless every bin row is
-    sorted ascending over its length and pv_p is non-decreasing: the
-    kernels binary-search both."""
-    for k, n in enumerate(bin_len):
-        row = bin_mat[k, :int(n)]
+def cnv_tables(arrs, ave: np.ndarray, std: np.ndarray, pv_p: np.ndarray,
+               pv_sd: np.ndarray, device, cap: int = COUNT_CAP) -> CnvTables:
+    """The z stage's tables on ``device`` in one upload: the count tables
+    of the 2 nb bin rows ``arrs`` (hi-mapq rows, then lo-mapq rows; each
+    capped at ``cap`` entries), the bin means and stdevs and the pval2sd
+    table. Raises unless every row is sorted ascending and non-negative
+    (the counts cover keys from 0) and pv_p is non-decreasing (the
+    kernel bisects it)."""
+    for k, row in enumerate(arrs):
+        row = np.asarray(row)
         if len(row) > 1 and np.any(row[1:] < row[:-1]):
             raise ValueError("bin row %d is not sorted ascending" % k)
+        if len(row) and row[0] < 0:
+            raise ValueError("bin row %d holds a negative depth" % k)
     if len(pv_p) > 1 and np.any(pv_p[1:] < pv_p[:-1]):
         raise ValueError("pval2sd probabilities are not non-decreasing")
-    f64 = np.float64
-    return CnvTables(mat=to_device(bin_mat, np.int64, device),
-                     lens=to_device(bin_len, np.int64, device),
-                     ave=to_device(np.reshape(ave, -1), f64, device),
-                     std=to_device(np.reshape(std, -1), f64, device),
-                     pv_p=to_device(pv_p, f64, device),
-                     pv_sd=to_device(pv_sd, f64, device))
+    return CnvTables(**pack_arrays(dict(
+        count_tables(arrs, cap), ave=np.reshape(ave, -1),
+        std=np.reshape(std, -1), pv_p=pv_p, pv_sd=pv_sd), TABLE_DTYPES,
+        device))
+
+
+def z_inputs(depth, mq, gc, low_acgt, lo: int, hi: int, device) -> ZInputs:
+    """The z stage's per-base inputs over [lo, hi) on ``device``, in one
+    upload (``pack_arrays``: pinned and not waited for on a CUDA
+    device)."""
+    sl = slice(lo, hi)
+    return ZInputs(**pack_arrays(dict(
+        depth=depth[sl], mq=mq[sl], gc=gc[sl], low_acgt=low_acgt[sl]),
+        ZIN_DTYPES, device))
 
 
 def span_inputs(batch, eligible: np.ndarray, device) -> Spans:
@@ -113,9 +129,21 @@ def sv_tables(mq_tab: np.ndarray, hez_tab: np.ndarray, device) -> SvTables:
                     rev=to_device(_ETYPE_REV, np.int32, device))
 
 
-def sv_entries(arrays, device) -> Tuple:
+def sv_entries(arrays, device) -> torch.Tensor:
     """One window's entry arrays (sv_screen's ``scorer`` arguments: pos,
-    etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here) as ``sv_score``
-    inputs: int64 tensors, ``etype`` int32."""
-    return tuple(to_device(a, np.int32 if k == "etype" else np.int64, device)
-                 for k, a in zip(ENTRY_KEYS, arrays))
+    etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here) as the int64
+    [9, n] ``sv_score`` input on ``device``: packed into one host buffer
+    (pinned for a CUDA device) and uploaded in one copy, not waited for."""
+    dev = torch.device(device)
+    n = len(arrays[0])
+    host = torch.empty((len(ENTRY_KEYS), n), dtype=torch.int64,
+                       pin_memory=dev.type == "cuda")
+    hb = host.numpy()
+    for k, a in enumerate(arrays):
+        hb[k] = a
+    if dev.type == "cpu":
+        return host
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            return host.to(dev, non_blocking=True)
+    return host.to(dev)

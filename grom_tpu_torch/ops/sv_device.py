@@ -10,11 +10,14 @@ tensors go to the kernel in ``csrc/sv_score.cu``, CPU tensors to
 ``call/sv_screen.py score_sv_entries`` bit for bit in every output
 and dtype: the H100 has native f64, so the tables stay f64.
 
-``SvScorer`` is a callable for the ``scorer=`` seam of
-``sv_screen.screen_window`` (numpy in, numpy out), with its tables
-uploaded once. ``maybe_scorer`` is the engine policy: on for the ``torch``
-and ``mesh`` engines, off with ``GROM_TPU_DEVICE_SV=0``. A failed build or
-launch raises; nothing falls back to the host screen.
+The entries travel as one int64 [9, n] tensor (``state.sv_entries``:
+one pinned upload) and the scores as one packed uint8 buffer
+(``unpack_scores``: binom, hez, kind, accept). ``SvScorer`` is a callable
+for the ``scorer=`` seam of ``sv_screen.screen_window`` (numpy in, numpy
+out), with its tables uploaded once and one copy each way a window.
+``maybe_scorer`` is the engine policy: on for the ``torch`` and ``mesh``
+engines, off with ``GROM_TPU_DEVICE_SV=0``. A failed build or launch
+raises; nothing falls back to the host screen.
 """
 
 from __future__ import annotations
@@ -71,14 +74,35 @@ def _ratio_gate(weak: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
     return weak.to(f32) / strong.to(f32) <= 0.25
 
 
-def score_sv_entries_plain(pos, etype, count, rs, re, rd, weak_f, weak_r,
-                           ctx_f_here, tables: SvTables, p: SvParams):
-    """The scorer in plain torch. Entries int64 [n] (``etype`` int32).
-    Returns (kind int32, accept bool, binom f64, hez f64)."""
+def score_bytes(n: int) -> int:
+    """Bytes of the packed scores of n entries (``unpack_scores``)."""
+    return 21 * n
+
+
+def pack_scores(kind, accept, binom, hez) -> torch.Tensor:
+    """The four score columns as one uint8 buffer: binom f64, hez f64,
+    kind int32, accept bool, back to back (the kernel's layout)."""
+    u8 = torch.uint8
+    return torch.cat([binom.view(u8), hez.view(u8), kind.view(u8),
+                      accept.view(u8)])
+
+
+def unpack_scores(buf: torch.Tensor, n: int):
+    """(kind int32, accept bool, binom f64, hez f64), each [n], as views of
+    a packed score buffer."""
+    return (buf[16 * n:20 * n].view(torch.int32),
+            buf[20 * n:21 * n].view(torch.bool),
+            buf[:8 * n].view(torch.float64),
+            buf[8 * n:16 * n].view(torch.float64))
+
+
+def score_sv_entries_plain(entries, tables: SvTables, p: SvParams):
+    """The scorer in plain torch. ``entries`` int64 [9, n], one row per
+    ``ENTRY_KEYS`` column. Returns the packed scores (``pack_scores``)."""
+    pos, etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here = entries
     af, mt = p.af, p.mt
-    et = etype.to(torch.int64)
-    kind = tables.kind[et]
-    rev = tables.rev[et].to(torch.bool)
+    kind = tables.kind[etype]
+    rev = tables.rev[etype].to(torch.bool)
     md_ok = _floordiv(count, af) >= p.md
     geom_ok = torch.where(rev, rs + p.lseq - pos < p.mean,
                           pos - re < p.mean)
@@ -105,7 +129,7 @@ def score_sv_entries_plain(pos, etype, count, rs, re, rd, weak_f, weak_r,
     hez = torch.where(gate, hez_val, 2.0)
 
     accept = md_ok & geom_ok & (rd > 0) & (binom <= p.thr1)
-    return kind, accept, binom, hez
+    return pack_scores(kind, accept, binom, hez)
 
 
 @functools.cache
@@ -114,24 +138,20 @@ def _lib() -> ctypes.CDLL:
     P, I, Lg, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, \
         ctypes.c_double
     _build.bind(lib, "gt_sv_score",
-                [P] * 11 + [Lg, Lg, P, P, I, I, Lg, Lg, Lg, Lg, D, Lg, Lg]
-                + [P] * 5)
+                [P, Lg, P, P, Lg, Lg, P, P, I, I, Lg, Lg, Lg, D, Lg, Lg, P,
+                 P])
     return lib
 
 
-def _sv_score_cuda(pos, etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here,
-                   tables: SvTables, p: SvParams):
-    dev = pos.device
-    ins = (pos, etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here)
-    n = int(pos.shape[0])
-    for name, x in zip(ENTRY_KEYS, ins):
-        want = torch.int32 if name == "etype" else torch.int64
-        if (x.dtype != want or x.device != dev or not x.is_contiguous()
-                or x.shape != (n,)):
-            raise ValueError("sv_score input %s must be a contiguous %s [%d] "
-                             "tensor on %s (got %s %s on %s)"
-                             % (name, want, n, dev, x.dtype, tuple(x.shape),
-                                x.device))
+def _sv_score_cuda(entries, tables: SvTables, p: SvParams):
+    dev = entries.device
+    if (entries.dtype != torch.int64 or entries.dim() != 2
+            or entries.shape[0] != len(ENTRY_KEYS)
+            or not entries.is_contiguous()):
+        raise ValueError("sv_score entries must be one contiguous int64 "
+                         "[%d, n] tensor (got %s %s)"
+                         % (len(ENTRY_KEYS), entries.dtype,
+                            tuple(entries.shape)))
     for name, x, want in (("mq", tables.mq, torch.float64),
                           ("hez", tables.hez, torch.float64),
                           ("kind", tables.kind, torch.int32),
@@ -142,34 +162,28 @@ def _sv_score_cuda(pos, etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here,
     if tables.mq.shape != tables.hez.shape:
         raise ValueError("the mq and hez tables differ in shape")
     lib = _lib()
-    kind = torch.empty(n, dtype=torch.int32, device=dev)
-    accept = torch.empty(n, dtype=torch.bool, device=dev)
-    binom = torch.empty(n, dtype=torch.float64, device=dev)
-    hez = torch.empty(n, dtype=torch.float64, device=dev)
+    n = int(entries.shape[1])
+    out = torch.empty(score_bytes(n), dtype=torch.uint8, device=dev)
     rows, cols = (int(s) for s in tables.mq.shape)
     _build.check(lib, lib.gt_sv_score(
-        *(x.data_ptr() for x in ins), tables.mq.data_ptr(),
-        tables.hez.data_ptr(), rows, cols, tables.kind.data_ptr(),
-        tables.rev.data_ptr(), int(tables.kind.shape[0]), E_CTX_R, n,
-        p.af, p.mt, p.md, float(p.thr1), p.mean, p.lseq, kind.data_ptr(),
-        accept.data_ptr(), binom.data_ptr(), hez.data_ptr(),
-        _build.stream_ptr(dev)), "sv_score")
+        entries.data_ptr(), n, tables.mq.data_ptr(), tables.hez.data_ptr(),
+        rows, cols, tables.kind.data_ptr(), tables.rev.data_ptr(),
+        int(tables.kind.shape[0]), E_CTX_R, p.af, p.mt, p.md, float(p.thr1),
+        p.mean, p.lseq, out.data_ptr(), _build.stream_ptr(dev)), "sv_score")
     _build.LAUNCHES["sv_score"] += 1
-    return kind, accept, binom, hez
+    return out
 
 
-def sv_score(pos, etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here,
-             tables: SvTables, p: SvParams):
-    """Score one window's entries: the CUDA kernel for CUDA tensors,
-    ``score_sv_entries_plain`` for CPU tensors."""
-    kind = pos.device.type
+def sv_score(entries, tables: SvTables, p: SvParams):
+    """Score one window's entries (int64 [9, n]) into the packed scores:
+    the CUDA kernel for CUDA tensors, ``score_sv_entries_plain`` for CPU
+    tensors."""
+    kind = entries.device.type
     if kind == "cuda":
-        with torch.cuda.device(pos.device):
-            return _sv_score_cuda(pos, etype, count, rs, re, rd, weak_f,
-                                  weak_r, ctx_f_here, tables, p)
+        with torch.cuda.device(entries.device):
+            return _sv_score_cuda(entries, tables, p)
     if kind == "cpu":
-        return score_sv_entries_plain(pos, etype, count, rs, re, rd, weak_f,
-                                      weak_r, ctx_f_here, tables, p)
+        return score_sv_entries_plain(entries, tables, p)
     raise ValueError("sv_score runs on cuda or cpu tensors, not %s" % kind)
 
 
@@ -177,7 +191,10 @@ class SvScorer:
     """Callable for ``sv_screen.screen_window``'s ``scorer``: the signature
     and dtypes of numpy's ``score_sv_entries`` partial, scored on
     ``device``. The tables are uploaded once; on a CUDA device the kernel
-    library is built here, so a build failure raises at construction."""
+    library is built here, so a build failure raises at construction. A
+    call packs the nine entry columns into one pinned buffer, uploads it
+    in one copy, launches once and copies the packed scores back in one
+    copy: one host sync a window."""
 
     def __init__(self, mq_tab: np.ndarray, hez_tab: np.ndarray, af: int,
                  mt: int, md: int, thr1: float, mean: int, lseq: int,
@@ -200,10 +217,10 @@ class SvScorer:
         if etype.min() < -n_et or etype.max() >= n_et:
             raise IndexError("etype out of range [%d, %d)" % (-n_et, n_et))
         from grom_tpu_torch.ops.state import sv_entries
-        args = sv_entries((pos, etype, count, rs, re, rd, weak_f, weak_r,
-                           ctx_f_here), self.device)
-        out = sv_score(*args, self.tables, self.params)
-        return tuple(o.cpu().numpy() for o in out)
+        entries = sv_entries((pos, etype, count, rs, re, rd, weak_f, weak_r,
+                              ctx_f_here), self.device)
+        scores = sv_score(entries, self.tables, self.params).cpu()
+        return tuple(x.numpy() for x in unpack_scores(scores, n))
 
 
 _CACHE: dict = {}

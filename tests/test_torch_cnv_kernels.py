@@ -1,16 +1,23 @@
 """The port's CNV kernels (grom_tpu_torch/ops/cnv_device.py) against
 grom_tpu on the same inputs, bitwise:
 
-* ``zscores`` (ranks 1 and 0) and ``seed_eval`` (both outer classes, the
-  full window up to maxw) against grom_tpu's ``zscores_device`` and
-  ``seed_eval_device`` under jax x64;
+* ``zscores`` (ranks 1 and 0, the mapq weight computed inside) and
+  ``seed_eval`` (both outer classes, the full window up to maxw) against
+  grom_tpu's ``zscores_device`` and ``seed_eval_device`` under jax x64;
+* the count-table semantics of ``zscores`` on seeded inputs built to break
+  them (short, empty and capped rows, keys past a row's largest value,
+  keys from the clamp, a desert of millions of bases with no class update,
+  a first update far from position 0), against grom_tpu's
+  ``zscores_device`` and a numpy reference;
 * ``null_model`` against the host's ``call/cnv.py:_null_window_model``
   (and grom_tpu's ``null_model_device`` against the host within 1e-9
   relative, its known XLA-cumsum drift).
 
 The inputs are the ones the port's CNV stage hands its kernels on the
 cnvrich fixture (captured from a CPU run of its detect_del_dup), plus a
-seeded normal z field for the null model. On the CPU the wrappers run the
+seeded normal z field for the null model. The stage itself, its z handed
+to the null model as a tensor, is held to the host engine on cnvrich and
+cnvmany. On the CPU the wrappers run the
 plain versions; chip_smoke.py holds the CUDA kernels to them on the card."""
 
 import contextlib
@@ -22,6 +29,7 @@ import pytest
 import torch
 
 from grom_tpu_torch.ops import cnv_device
+from grom_tpu_torch.testing import zcases
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -74,9 +82,10 @@ def _same_outcomes(got, want):
             assert np.array_equal(g, np.asarray(w)), k
 
 
-def _cnv_inputs(fixture):
+def _cnv_inputs(fixture, fa=None, bam=None, **cfg_kw):
     """(chrom, host per-base arrays with the rd lists, cfg, drv) of a
-    fixture's first contig, from the port's host engine."""
+    fixture's first contig (or of the dataset ``fa``/``bam``), from the
+    port's host engine."""
     from grom_tpu_torch.call import scan as scan_mod
     from grom_tpu_torch.config import DerivedConfig, GromConfig
     from grom_tpu_torch.driver import _subset_reads
@@ -84,9 +93,10 @@ def _cnv_inputs(fixture):
     from grom_tpu_torch.ingest import fasta as fasta_mod
     from grom_tpu_torch.ingest.batches import build_batch
     from grom_tpu_torch.ingest.insert_size import load_or_estimate
-    d = os.path.join(DATA, fixture)
-    cfg = GromConfig(bam=os.path.join(d, "ds.bam"),
-                     ref_fasta=os.path.join(d, "ds.fa"), out_vcf="unused.vcf")
+    d = os.path.join(DATA, fixture or "")
+    cfg = GromConfig(bam=bam or os.path.join(d, "ds.bam"),
+                     ref_fasta=fa or os.path.join(d, "ds.fa"),
+                     out_vcf="unused.vcf", **cfg_kw)
     info = fasta_mod.index_fasta(cfg.ref_fasta)
     _, reads = bam_mod.read_bam(cfg.bam)
     ins = load_or_estimate(cfg.bam, reads, cfg)
@@ -106,10 +116,13 @@ def stage():
     """Kernel inputs of the port's CNV stage on cnvrich (CPU run), with
     the calls it emitted."""
     from grom_tpu_torch.call import cnv as tcnv
+    from grom_tpu_torch.ops import state
 
     chrom, arr, cfg, drv = _cnv_inputs("cnvrich")
     rec = {"zscores": [], "null_model": [], "seed_eval": []}
     orig = {k: getattr(cnv_device, k) for k in rec}
+    bin_rows = []
+    cnv_tables = state.cnv_tables
 
     copies = {}
 
@@ -127,14 +140,21 @@ def stage():
 
     def recorder(name):
         def f(*a, **k):
-            a = tuple(snapshot(x) for x in a)
+            # the call gets the stage's own arguments (zscores writes into
+            # a view of the stage's z), the record copies taken before it
+            kept = tuple(snapshot(x) for x in a)
             out = orig[name](*a, **k)
-            rec[name].append((a, k, out))
+            rec[name].append((kept, k, out))
             return out
         return f
 
+    def tables_recorder(arrs, *a, **k):
+        bin_rows.append([np.array(r) for r in arrs])
+        return cnv_tables(arrs, *a, **k)
+
     for k in rec:
         setattr(cnv_device, k, recorder(k))
+    state.cnv_tables = tables_recorder
     try:
         feats = tcnv.preprocess_reference(chrom, drv.insert_mean,
                                           cfg.min_repeat)
@@ -147,33 +167,135 @@ def stage():
     finally:
         for k, v in orig.items():
             setattr(cnv_device, k, v)
+        state.cnv_tables = cnv_tables
     return types.SimpleNamespace(rec=rec, cfg=cfg, prep=prep, dels=dels,
-                                 dups=dups, L=len(chrom))
+                                 dups=dups, L=len(chrom), bin_rows=bin_rows)
 
 
 @pytest.mark.parametrize("ranks", [True, False])
 def test_zscores_match_jax(stage, ranks):
-    from grom_tpu.ops.cnv_device import zscores_device
     """On a 60 kb window of the stage's z block (JAX's kernel compares
     every base against a whole padded bin row, so the full block is slow
-    on the CPU); both sides start the sticky class fresh at its edge."""
-    (depth, mq, gc, la, w, tables, nb, min_mapq, dup_f, _), _, _ = \
-        stage.rec["zscores"][0]
-    cfg = stage.cfg
-    a = depth.shape[0] // 3
-    depth, mq, gc, la, w = (x[a:a + 60_000].contiguous()
-                            for x in (depth, mq, gc, la, w))
-    n = depth.shape[0]
-    got = cnv_device.zscores(depth, mq, gc, la, w, tables, nb, min_mapq,
-                             dup_f, ranks).numpy()
+    on the CPU); both sides start the sticky class fresh at its edge. The
+    port computes the mapq weight itself; grom_tpu's wrapper computes it
+    in numpy."""
+    from grom_tpu.ops.cnv_device import build_bin_matrix, zscores_device
+    a, _, _ = stage.rec["zscores"][0]
+    zin, tables, nb, min_mapq, mf, dup_f = a[:6]
+    a = zin.depth.shape[0] // 3
+    zin = cnv_device.ZInputs(*(x[a:a + 60_000].contiguous() for x in zin))
+    n = zin.depth.shape[0]
+    got = cnv_device.zscores(zin, tables, nb, min_mapq, mf, dup_f,
+                             ranks).numpy()
+    rows = stage.bin_rows[0]
+    mat, lens = build_bin_matrix(rows[:nb], rows[nb:], nb)
     with _x64():
         want = zscores_device(
-            depth.numpy(), mq.numpy(), gc.numpy(), la.numpy(),
-            tables.mat.numpy(), tables.lens.numpy(), tables.ave.numpy(),
+            zin.depth.numpy(), zin.mq.numpy(), zin.gc.numpy(),
+            zin.low_acgt.numpy(), mat, lens, tables.ave.numpy(),
             tables.std.numpy(), tables.pv_p.numpy(), tables.pv_sd.numpy(),
-            nb, 0, n, min_mapq, cfg.mapq_factor, dup_f, ranks)
+            nb, 0, n, min_mapq, mf, dup_f, ranks)
     assert np.array_equal(_bits(got), _bits(want))
     assert np.count_nonzero(got) > n // 2
+
+
+def test_count_tables_hold_the_rows(stage):
+    """The stage's count tables give back every bin row: cnt[v] - cnt[v-1]
+    copies of v below the row's width, then its tail."""
+    tables, nb = stage.rec["zscores"][0][0][1:3]
+    rows = tables.rows.view(-1, 5).numpy()
+    cnt, tail = tables.cnt.numpy(), tables.tail.numpy()
+    assert len(rows) == 2 * nb == len(stage.bin_rows[0])
+    for r, want in zip(rows, stage.bin_rows[0]):
+        nk, width, c_off, t_off, t_len = (int(x) for x in r)
+        c = np.concatenate([[0], cnt[c_off:c_off + width]])
+        row = np.concatenate([np.repeat(np.arange(width), np.diff(c)),
+                              tail[t_off:t_off + t_len]])
+        assert nk == len(want) and np.array_equal(row, want)
+
+
+def _zscores_numpy(depth, mq, gc, la, arrs, ave, std, pv_p, pv_sd, nb,
+                   min_mapq, mf, dup_f, ranks):
+    """The z stage as the host computes it (call/cnv.py): the sticky class
+    by a running maximum of indices, midrank counts by searches in each
+    sorted row, the mapq weight in numpy."""
+    n = len(depth)
+    d, m, g = (x.astype(np.int64) for x in (depth, mq, gc))
+    lens = np.array([len(a) for a in arrs], np.int64)
+    hi_mq = m >= min_mapq
+    defz = np.where(hi_mq, 0, np.where(d > 0, 1, -1))
+    eligible = (la == 0) & (lens[np.where(hi_mq, 0, nb) + g] > 1)
+    fi = np.where(eligible & (defz >= 0), np.arange(n), -1)
+    np.maximum.accumulate(fi, out=fi)
+    cls = np.where(defz >= 0, defz,
+                   np.where(fi >= 0, defz[np.maximum(fi, 0)], 0))
+    k = cls * nb + g
+    nk = lens[k]
+    valid = eligible & (nk > 0)
+    av = ave[k]
+    dd = d.astype(np.float64)
+    below = dd < av
+    clamp = dup_f * av
+    if ranks:
+        key_l = np.where(dd > clamp, clamp.astype(np.int64), d)
+        s_dr, s_dl, s_kl = (np.zeros(n, np.int64) for _ in range(3))
+        for kk in np.unique(k[valid]):
+            sel = np.flatnonzero(valid & (k == kk))
+            row = np.asarray(arrs[kk], np.int64)
+            s_dr[sel] = np.searchsorted(row, d[sel], side="right")
+            s_dl[sel] = np.searchsorted(row, d[sel], side="left")
+            s_kl[sel] = np.searchsorted(row, key_l[sel], side="left")
+        fx = lambda c: np.where((nk == 2) & (c == 0), 1, c)
+        bi = np.where(below, fx(s_dr), nk - fx(s_kl))
+        bi2 = np.where(below, fx(s_dl), nk - fx(s_dr))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            prob = (np.where(bi <= 0, 0.5, bi) + np.where(bi2 <= 0, 0.5, bi2)
+                    ) / (2.0 * nk)
+        pi = np.clip(np.searchsorted(pv_p, prob, side="right"), 0,
+                     len(pv_p) - 1)
+        base = np.where(below, pv_sd[pi], -pv_sd[pi])
+    else:
+        sb = std[k]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            plain = np.where(sb != 0, (av - dd) / sb, 0.0)
+            clamped = np.where(sb != 0, (dup_f - 1.0) * (-av) / sb, 0.0)
+        base = np.where(below | ~(dd > clamp), plain, clamped)
+    w = np.where(mq >= min_mapq, mf + (1.0 - mf) * (mq - min_mapq) / 40.0,
+                 mf)
+    return np.where(valid, w * base, 0.0)
+
+
+@pytest.mark.parametrize("case", zcases.CASES)
+@pytest.mark.parametrize("ranks", [True, False])
+def test_zscores_count_tables(case, ranks):
+    """The plain version's count-table semantics against a numpy
+    reference of the host's z stage; the smaller cases also against
+    grom_tpu's ``zscores_device`` under x64."""
+    from grom_tpu.call.cnv import build_pval2sd
+    from grom_tpu.ops.cnv_device import build_bin_matrix, zscores_device
+    from grom_tpu_torch.ops import state
+    depth, mq, gc, la, arrs, cap, nb = zcases.zscore_case(case)
+    ave, std = zcases.bin_stats(arrs)
+    pv_p, pv_sd = build_pval2sd()
+    tables = state.cnv_tables(arrs, ave, std, pv_p, pv_sd, "cpu", cap=cap)
+    zin = state.z_inputs(depth, mq, gc, la, 0, len(depth), "cpu")
+    par = (zcases.MIN_MAPQ, zcases.MAPQ_FACTOR, zcases.DUP_THR_FACTOR)
+    got = cnv_device.zscores(zin, tables, nb, *par, ranks).numpy()
+    want = _zscores_numpy(depth, mq, gc, la, arrs, ave, std, pv_p, pv_sd,
+                          nb, *par, ranks)
+    assert np.array_equal(_bits(got), _bits(want))
+    assert np.count_nonzero(got) > len(got) // 10
+    if len(depth) <= 100_000:
+        mat, lens = build_bin_matrix(arrs[:nb], arrs[nb:], nb)
+        with _x64():
+            jx = zscores_device(depth, mq, gc, la, mat, lens, ave, std,
+                                pv_p, pv_sd, nb, 0, len(depth), *par, ranks)
+        assert np.array_equal(_bits(got), _bits(jx))
+    rows = tables.rows.view(-1, 5).numpy()
+    if case == "wide rows":
+        assert rows[0, 1] == cap and rows[0, 4] > 0    # a capped row
+    if case == "short and empty rows":
+        assert {0, 1, 2} <= set(rows[:, 0].tolist())
 
 
 @pytest.mark.parametrize("side", [0, 1])
@@ -353,11 +475,14 @@ def test_null_model_matches_host(stage, field):
     assert np.allclose(jx, host, rtol=1e-9, atol=1e-12)
 
 
-def _host_null_model(stage, z, gate):
-    """grom_tpu's host ``_null_window_model`` on ``z`` with a gate that
-    reproduces ``gate`` exactly (the host derives it from low_acgt, nwin,
-    mq and gc)."""
-    from grom_tpu.call.cnv import _null_window_model
+def _host_null_model(stage, z, gate, port=False):
+    """grom_tpu's host ``_null_window_model`` (the port's copy with
+    ``port``) on ``z`` with a gate that reproduces ``gate`` exactly (the
+    host derives it from low_acgt, nwin, mq and gc)."""
+    if port:
+        from grom_tpu_torch.call.cnv import _null_window_model
+    else:
+        from grom_tpu.call.cnv import _null_window_model
     L = stage.L
     return _null_window_model(
         types.SimpleNamespace(lowvar_blocks=stage.prep.lowvar_blocks), None,
@@ -442,6 +567,77 @@ def test_cnv_stage_emits_calls(stage):
     assert len(stage.dels) + len(stage.dups) >= 5
 
 
+@pytest.fixture(scope="module")
+def cnvmany_data(tmp_path_factory):
+    from grom_tpu_torch.testing import cnvmany
+    d = tmp_path_factory.mktemp("cnvmany")
+    return cnvmany.build(str(d / "ds"))
+
+
+@pytest.mark.parametrize("fixture", ["cnvrich", "cnvmany"])
+def test_cnv_stage_z_tensor_to_null_model(fixture, request, monkeypatch):
+    """The port's CNV stage on the torch engine (CPU tensors: the plain
+    versions) hands its z to the null model as a tensor, never through the
+    host: that z equals the host engine's pre-rescore z bitwise, the
+    window stdevs equal the port's ``_null_window_model`` on the host z
+    and the native host engine's, and the calls equal the host engine's
+    (-V 0.0001, as the fixtures' oracles)."""
+    from grom_tpu_torch.call import cnv as tcnv
+    if fixture == "cnvmany":
+        fa, bam = request.getfixturevalue("cnvmany_data")
+        chrom, arr, cfg, drv = _cnv_inputs(None, fa, bam,
+                                           rd_pval_threshold=1e-4)
+    else:
+        chrom, arr, cfg, drv = _cnv_inputs(fixture, rd_pval_threshold=1e-4)
+    L = len(chrom)
+    feats = tcnv.preprocess_reference(chrom, drv.insert_mean, cfg.min_repeat)
+    depth = np.add(arr.rd_hi, arr.rd_lo, dtype=np.int32)
+    prep = tcnv.prep_cnv(chrom, feats, arr.rd_hi, arr.rd_lo, arr.rd_mq, cfg,
+                         drv, depth=depth)
+    seen = {}
+    native_ctx = tcnv._native_cnv_ctx
+
+    def host_ctx(*a, **k):
+        nat = native_ctx(*a, **k)
+        assert nat is not None
+
+        class Spy:
+            def __getattr__(self, name):
+                return getattr(nat, name)
+
+            def null_model(self, blocks, z):
+                seen["host_z"] = z.copy()
+                seen["host_std"] = nat.null_model(blocks, z)
+                return seen["host_std"]
+        return Spy()
+
+    def detect(engine):
+        return tcnv.detect_del_dup(chrom, feats, prep, None, None, cfg, drv,
+                                   cfg.ploidy, depth=depth, engine=engine,
+                                   device="cpu")
+
+    monkeypatch.setattr(tcnv, "_native_cnv_ctx", host_ctx)
+    host_calls = detect("host")
+    null_model = cnv_device.null_model
+
+    def device_null_model(z, gate, *a, **k):
+        assert isinstance(z, torch.Tensor) and z.shape == (L,)
+        seen["z"], seen["gate"] = z.numpy().copy(), gate.clone()
+        seen["std"] = null_model(z, gate, *a, **k)
+        return seen["std"]
+
+    monkeypatch.setattr(cnv_device, "null_model", device_null_model)
+    calls = detect("torch")
+    assert np.array_equal(_bits(seen["z"]), _bits(seen["host_z"]))
+    host = _host_null_model(types.SimpleNamespace(
+        L=L, cfg=cfg, prep=prep), torch.from_numpy(seen["host_z"]),
+        seen["gate"], port=True)
+    assert np.array_equal(_bits(seen["std"]), _bits(host))
+    assert np.array_equal(_bits(seen["std"]), _bits(seen["host_std"]))
+    assert calls == host_calls
+    assert len(calls[0]) + len(calls[1]) >= 5
+
+
 @pytest.mark.cuda
 def test_null_model_cuda_no_round_trip_between_batches(stage):
     """On the card, with torch's sync debug mode warning: the null model
@@ -471,6 +667,37 @@ def test_null_model_cuda_no_round_trip_between_batches(stage):
                           "operation" in str(w.message)]))
     assert syncs == [2, 2]
     assert len(seg.s) > 20 * 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", zcases.CASES)
+def test_zscores_cuda_count_tables(case):
+    """On the card: the z kernel on each seeded count-table case, ranks on
+    and off, equals the plain version's CPU output bitwise, z written into
+    a view of a larger tensor (the stage's [L] z) left untouched around
+    it."""
+    from grom_tpu_torch.call.cnv import build_pval2sd
+    from grom_tpu_torch.ops import state
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    depth, mq, gc, la, arrs, cap, nb = zcases.zscore_case(case)
+    ave, std = zcases.bin_stats(arrs)
+    pv_p, pv_sd = build_pval2sd()
+    par = (zcases.MIN_MAPQ, zcases.MAPQ_FACTOR, zcases.DUP_THR_FACTOR)
+    n = len(depth)
+    for ranks in (True, False):
+        want = cnv_device.zscores(
+            state.z_inputs(depth, mq, gc, la, 0, n, "cpu"),
+            state.cnv_tables(arrs, ave, std, pv_p, pv_sd, "cpu", cap=cap),
+            nb, *par, ranks)
+        z = torch.zeros(n + 3, dtype=torch.float64, device="cuda")
+        cnv_device.zscores(
+            state.z_inputs(depth, mq, gc, la, 0, n, "cuda"),
+            state.cnv_tables(arrs, ave, std, pv_p, pv_sd, "cuda", cap=cap),
+            nb, *par, ranks, z[1:n + 1])
+        z = z.cpu()
+        assert np.array_equal(_bits(z[1:n + 1]), _bits(want))
+        assert z[0] == 0 and (z[n + 1:] == 0).all()
 
 
 @pytest.mark.cuda

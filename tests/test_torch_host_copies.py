@@ -34,6 +34,8 @@ VERBATIM = [
 # follows)
 MERGED = {
     "__init__.py": ("__init__.py", {"_tune_malloc"}),
+    "_earlyingest.py": ("_earlyingest.py", {"_MAX_FLAT", "_mmap_buf", "_work",
+                                            "start", "take"}),
     "cli.py": ("cli.py", {"_GETOPT", "HELP", "parse_args"}),
     "driver.py": ("driver.py", {
         "DEFAULT_CHUNK_BASES", "_auto_chunk_bases",

@@ -37,6 +37,7 @@ OUT = os.path.join(REPO, "build", "walls")
 ENGINES = ("grom_tpu", "host", "torch", "mesh")
 GROM_TPU = {"grom_tpu": {}, "grom_tpu_noslab": {"GROM_TPU_HUGEALLOC": "0"}}
 PHASES = ("call.cnv", "cnv.winscan", "cnv.winscan_dev", "cnv.seed_eval_dev",
+          "cnv.zscores_dev", "cnv.nullmodel_dev", "call.sv_detect",
           "ingest.read_bam", "scan.accumulate", "scan.device",
           "scan.deposits")
 
