@@ -44,12 +44,22 @@ non-zero without its result line:
    ``call.sv_detect``, and summed card times of that run; then the depth
    and SV kernels against their plain versions, bitwise and timed, and the
    depth kernels bitwise on the edge batch (testing/spans.py) run whole
-   and chunked by the mesh engine on the card, equal to the CPU run.
+   and chunked by the mesh engine on the card, equal to the CPU run;
+7. ``-P`` on the card: a two-chromosome genome at 30x (24 Mb and 20 Mb,
+   grom_tpu's human-like proportions, testing/bulk_sim.py ``bulk_genome``)
+   through the CLI's ``run_parallel`` with two workers, on the host engine
+   and then on the default engine (both workers on the card), VCF and
+   .ctx.vcf byte-identical; each job's worker, card, peak card memory,
+   host memory, wall and CPU seconds; the launches summed over the
+   workers (every kernel of the torch path, a tile launch at least per
+   2^18 bases of each chromosome); then ``-P 2 -R 1`` on a 2.6 Mb
+   chromosome at 30x (three region jobs), card against host.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table (each kernel's time beside its bound: the larger of
 the bytes it must move over the card's memory rate and its operations
-over the peak rate of their type, counted from this run's inputs), and as
+over the peak rate of their type, counted from this run's inputs; and the
+time of one PyTorch call for the same work where one exists), and as
 the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Everything it writes goes under build/; it imports nothing of jax or of
@@ -134,6 +144,21 @@ BULK = dict(length=24_000_000, coverage=30.0, seed=5, snp_rate=1e-3,
             depressions=[(14_000_000, 14_040_000, 0.4)],
             repeats=[(20_000_000, 20_010_000, b"AT")])
 
+# phase 7: the -P genome, two chromosomes at 30x in grom_tpu's human-like
+# proportions (tools/wgs_bench.py CHROM_FRACS, 240:200), fixed seeds,
+# and BULK's planted features (a hotspot, a depression, an AT repeat)
+GENOME = [dict(name="chrp1", length=24_000_000, coverage=30.0, seed=71,
+               hotspots=BULK["hotspots"], depressions=BULK["depressions"],
+               repeats=BULK["repeats"]),
+          dict(name="chrp2", length=20_000_000, coverage=30.0, seed=72,
+               hotspots=[(9_000_000, 9_020_000, 20.0)],
+               depressions=[(15_000_000, 15_040_000, 0.4)])]
+# and the -R chromosome: three region jobs. -X 1000: outside its region a
+# job's depth is zero and the CNV scan steps every such position up to the
+# longest window (tests/test_torch_parallel.py)
+SPLIT = dict(length=2_600_000, coverage=30.0, seed=73)
+SPLIT_FLAGS = ["-R", "1", "-X", "1000"]
+
 
 def say(*a) -> None:
     print(*a, flush=True)
@@ -202,6 +227,20 @@ def run_module(argv, engine_name: str) -> float:
         raise RuntimeError("python -m grom_tpu_torch %s exited %d:\n%s"
                            % (argv, r.returncode, r.stderr[-4000:]))
     return time.perf_counter() - t0
+
+
+def run_parallel_cli(argv, engine_name: str):
+    """One in-process ``-P`` run of the port's CLI (its ``parse_args`` and
+    ``run_parallel``, as ``main`` calls them); returns (wall seconds, the
+    jobs' reports)."""
+    from grom_tpu_torch.cli import parse_args, run_parallel
+    cfg = parse_args(list(argv))
+    if cfg is None or cfg.processes < 2:
+        raise ValueError("not a -P run: %s" % (argv,))
+    t0 = time.perf_counter()
+    with engine(engine_name):
+        reps = run_parallel(cfg)
+    return time.perf_counter() - t0, reps
 
 
 def ctx_path(vcf: str) -> str:
@@ -1117,23 +1156,27 @@ def phase_real_size_mesh() -> dict:
         res = check_kernels(rec, "mesh real-size", timed=True,
                             names=MESH_ONLY + ("sv_score",))
         check_rd_scan_terms(rec)
-        # no library call computes either function; one call does a part
+        # no library call computes either function; one call does a part:
+        # the kernels table's library_ms
         spans, _, lo, hi, L, min_mapq = rec.best["rd_scatter"][1][:6]
         pos, sign, w_mq, _ = rd_depth.endpoints_plain(spans, lo, hi, L,
                                                       min_mapq)
         idx, w_mq = pos - lo, sign * w_mq
         buf = torch.zeros(hi - lo, dtype=torch.int32, device=pos.device)
         rows = rec.best["rd_scan"][1][0]
-        say("partial yardsticks: index_add_ of one of rd_scatter's three "
-            "channels over the run's %d kept endpoints (found beforehand) "
-            "%.4f ms; torch.cumsum of one cell's delta rows (no carry, no "
-            "histogram) %.4f ms"
-            % (len(idx), _ms(lambda: buf.index_add_(0, idx, w_mq)),
-               _ms(lambda: torch.cumsum(rows, 1, dtype=torch.int32))))
+        lib_ms = {"rd_scatter": _ms(lambda: buf.index_add_(0, idx, w_mq)),
+                  "rd_scan": _ms(lambda: torch.cumsum(rows, 1,
+                                                      dtype=torch.int32))}
+        say("library calls (CUDA events; partial yardsticks): index_add_ "
+            "of one of rd_scatter's three channels over the run's %d kept "
+            "endpoints (found beforehand) %.4f ms; torch.cumsum of one "
+            "cell's delta rows (no carry, no histogram) %.4f ms"
+            % (len(idx), lib_ms["rd_scatter"], lib_ms["rd_scan"]))
         check_rd_edges()
         for k, row in res.items():
             row["launches"] = launches[k]
             row["run_ms"], row["run_bound_ms"] = sums[k]
+            row["library_ms"] = lib_ms.get(k)
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
@@ -1204,6 +1247,123 @@ def check_rd_edges() -> None:
             "max %d)" % (label, int(got[2][1].max())))
 
 
+def genome_args():
+    """argv (without -o) of phase 7's two-chromosome genome, generated
+    under build/ at first use."""
+    from grom_tpu_torch.testing.bulk_sim import bulk_genome
+    prefix = os.path.join(REPO, "build", "genome_%s" % "_".join(
+        "%d-%d" % (c["length"], c["seed"]) for c in GENOME), "g")
+    if not os.path.exists(prefix + ".bam.bai"):
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
+        t0 = time.perf_counter()
+        bulk_genome(prefix, GENOME)
+        say("genome generated in %.1f s" % (time.perf_counter() - t0))
+    return ["-i", prefix + ".bam", "-r", prefix + ".fa"]
+
+
+def split_args():
+    """argv (without -o) of phase 7's -R chromosome."""
+    from grom_tpu_torch.testing.bulk_sim import bulk_dataset
+    prefix = os.path.join(OUT, "split", "s")
+    if not os.path.exists(prefix + ".bam.bai"):
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
+        bulk_dataset(prefix, **SPLIT)
+    return ["-i", prefix + ".bam", "-r", prefix + ".fa"] + SPLIT_FLAGS
+
+
+def report_jobs(label: str, wall: float, reps) -> None:
+    """Each job of a -P run: its worker, card, peak card and host memory,
+    wall and CPU seconds; and the run's CPU seconds over its wall."""
+    for r in reps:
+        mem, rss = r["max_memory_allocated"], r["max_rss_kib"]
+        say("%s job %s: worker %d on %s, peak card memory %s, peak host "
+            "RSS %s, wall %.2f s, CPU %.2f s"
+            % (label, r["job"], r["pid"], r["device"],
+               "-" if mem is None else "%.1f MiB" % (mem / 2**20),
+               "-" if rss is None else "%.2f GiB" % (rss / 2**20),
+               r["wall_s"], r["cpu_s"]))
+    cpu = sum(r["cpu_s"] for r in reps)
+    say("%s: wall %.2f s, workers' CPU %.2f s (%.2f cores busy of %d)"
+        % (label, wall, cpu, cpu / wall, os.cpu_count()))
+
+
+def check_card_jobs(label: str, reps, launches: dict) -> None:
+    """Every job of a -P run on a card, and the parent's launch counts
+    equal to the sum of the jobs'."""
+    for r in reps:
+        if not r["device"].startswith("cuda:") or r["engine"] == "host":
+            raise AssertionError("%s: job %s ran %s on %s"
+                                 % (label, r["job"], r["engine"],
+                                    r["device"]))
+    for k, n in launches.items():
+        if n != sum(r["launches"][k] for r in reps):
+            raise AssertionError("%s: %s launches %d, the jobs' sum %d"
+                                 % (label, k, n, sum(r["launches"][k]
+                                                     for r in reps)))
+
+
+def phase_parallel() -> None:
+    """-P 2 on the two-chromosome genome, host engine then the default
+    engine on the card; then -P 2 -R 1."""
+    import torch
+
+    from grom_tpu_torch import _build
+    say("== 7. -P on the card: %s at %gx, 2 workers"
+        % (" + ".join("%d Mb" % (c["length"] // 10**6) for c in GENOME),
+           GENOME[0]["coverage"]))
+    say("torch intra-op threads %d (each worker's default), %d CPUs"
+        % (torch.get_num_threads(), os.cpu_count()))
+    args = genome_args() + ["-P", "2"]
+    host_vcf = os.path.join(OUT, "genome.host.vcf")
+    card_vcf = os.path.join(OUT, "genome.card.vcf")
+    t_host, host_reps = run_parallel_cli(args + ["-o", host_vcf], "host")
+    _build.reset_launches()
+    t_card, reps = run_parallel_cli(args + ["-o", card_vcf], "auto")
+    launches = dict(_build.LAUNCHES)
+    same_files(card_vcf, host_vcf)
+    n, snv, cnv = count_rows(card_vcf)
+    if snv < 1 or cnv < 1:
+        raise AssertionError("-P run emitted %d SNV and %d CNV rows"
+                             % (snv, cnv))
+    say("VCF and .ctx.vcf byte-identical: %d rows (%d SNV, %d CNV)"
+        % (n, snv, cnv))
+    say("wall: host engine -P 2 %.2f s, %s engine -P 2 %.2f s"
+        % (t_host, reps[0]["engine"], t_card))
+    report_jobs("host -P 2", t_host, host_reps)
+    report_jobs("card -P 2", t_card, reps)
+    say("launches summed over the workers:", json.dumps(launches))
+    check_card_jobs("-P 2", reps, launches)
+    for k in TORCH_PATH:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError("-P 2: kernel %s was not launched" % k)
+    tiles = sum(math.ceil(c["length"] / (1 << 18)) for c in GENOME)
+    if launches["tile_accumulate"] < tiles:
+        raise AssertionError("-P 2: %d tile launches < %d tiles"
+                             % (launches["tile_accumulate"], tiles))
+
+    args = split_args() + ["-P", "2"]
+    host_vcf = os.path.join(OUT, "split.host.vcf")
+    card_vcf = os.path.join(OUT, "split.card.vcf")
+    t_host, host_reps = run_parallel_cli(args + ["-o", host_vcf], "host")
+    _build.reset_launches()
+    t_card, reps = run_parallel_cli(args + ["-o", card_vcf], "auto")
+    launches = dict(_build.LAUNCHES)
+    same_files(card_vcf, host_vcf)
+    if len(reps) != 3:
+        raise AssertionError("-R 1: %d jobs, not 3" % len(reps))
+    check_card_jobs("-P 2 -R 1", reps, launches)
+    for k in TORCH_PATH:
+        if launches.get(k, 0) <= 0:
+            raise AssertionError("-P 2 -R 1: kernel %s was not launched" % k)
+    say("-P 2 %s on %g Mb at %gx: %d region jobs, VCF and .ctx.vcf "
+        "byte-identical (%d rows); wall: host engine %.2f s, %s engine "
+        "%.2f s; launches %s"
+        % (" ".join(SPLIT_FLAGS), SPLIT["length"] / 1e6,
+           SPLIT["coverage"], len(reps), count_rows(card_vcf)[0], t_host,
+           reps[0]["engine"], t_card, json.dumps(launches)))
+    report_jobs("card -P 2 -R 1", t_card, reps)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "grom_tpu_torch")):
         print("chip_smoke.py: grom_tpu_torch is not beside this script; "
@@ -1225,6 +1385,7 @@ def main() -> int:
     phase_fixtures_mesh()
     res = phase_real_size()
     res.update(phase_real_size_mesh())
+    phase_parallel()
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax",
                                                               "grom_tpu")]
     if foreign:
@@ -1235,7 +1396,8 @@ def main() -> int:
                   replaces=KERNELS[k][1], launches=res[k]["launches"],
                   max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
                   plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
-                  bound_by=res[k]["bound_by"], library_ms=None)
+                  bound_by=res[k]["bound_by"],
+                  library_ms=res[k].get("library_ms"))
              for k in KERNELS]
     say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {

@@ -87,6 +87,14 @@ def build(name: str) -> str:
     return so
 
 
+def build_all() -> list:
+    """Compile every kernel library not built yet, one nvcc per source, all
+    started together; returns their paths."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return list(pool.map(build, LIBRARIES))
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built at first use."""

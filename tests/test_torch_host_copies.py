@@ -36,7 +36,8 @@ MERGED = {
     "__init__.py": ("__init__.py", {"_tune_malloc"}),
     "_earlyingest.py": ("_earlyingest.py", {"_MAX_FLAT", "_mmap_buf", "_work",
                                             "start", "take"}),
-    "cli.py": ("cli.py", {"_GETOPT", "HELP", "parse_args"}),
+    "cli.py": ("cli.py", {"_GETOPT", "HELP", "parse_args",
+                           "split_regions"}),
     "driver.py": ("driver.py", {
         "DEFAULT_CHUNK_BASES", "_auto_chunk_bases",
         "_start_first_chunk_prefetch", "_sync_ingest",

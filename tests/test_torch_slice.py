@@ -5,9 +5,9 @@ host engine, and rows equal to the committed reference-binary oracles.
 
 Chunk edges are forced (GROM_TPU_CHUNK_BASES=60000,
 GROM_TPU_DETECT_BASES=30000) so the streamed path crosses many ingest and
-detect boundaries. Also here: the CLI (``-P`` refusal), the engine seam,
-and that no run imports jax or grom_tpu. The whole-batch path and ``-c``
-are in test_torch_whole_batch.py."""
+detect boundaries. Also here: the CLI, the engine seam, and that no run
+imports jax or grom_tpu. The whole-batch path and ``-c`` are in
+test_torch_whole_batch.py, ``-P`` in test_torch_parallel.py."""
 
 import os
 import subprocess
@@ -196,16 +196,6 @@ def _cli(args, env_extra, timeout=600):
     env.update(env_extra)
     return subprocess.run([sys.executable, *args], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=timeout)
-
-
-def test_cli_parallel_not_ported(tmp_path):
-    d = os.path.join(DATA, "ds200k")
-    r = _cli(["-m", "grom_tpu_torch", "-i", os.path.join(d, "ds.bam"),
-              "-r", os.path.join(d, "ds.fa"), "-o", str(tmp_path / "o.vcf"),
-              "-P", "2"], {})
-    assert r.returncode == 2
-    assert "not yet ported" in r.stderr
-    assert not os.path.exists(tmp_path / "o.vcf")
 
 
 def _foreign(mods):
