@@ -53,7 +53,16 @@ non-zero without its result line:
    host memory, wall and CPU seconds; the launches summed over the
    workers (every kernel of the torch path, a tile launch at least per
    2^18 bases of each chromosome); then ``-P 2 -R 1`` on a 2.6 Mb
-   chromosome at 30x (three region jobs), card against host.
+   chromosome at 30x (three region jobs), card against host;
+8. the default geometry of a human chromosome (16 Mi ingest chunks, 4 Mi
+   detect sub-chunks, which a chromosome gets from 134,217,728 bases on)
+   on phase 5's 24 Mb dataset: ``python -m grom_tpu_torch`` on the torch
+   and mesh engines in fresh processes with GROM_TPU_CHUNK_BASES and
+   GROM_TPU_DETECT_BASES set (two ingest chunks, the first cut into four
+   sub-chunks), VCF and .ctx.vcf byte-identical to phase 5's host output;
+   each run's launches (every kernel of its path), its ``peak_memory``
+   line (peak host RSS with its label, peak card memory) and, on the mesh
+   engine, K5's largest run (spans and cells).
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table (each kernel's time beside its bound: the larger of
@@ -158,6 +167,10 @@ GENOME = [dict(name="chrp1", length=24_000_000, coverage=30.0, seed=71,
 # longest window (tests/test_torch_parallel.py)
 SPLIT = dict(length=2_600_000, coverage=30.0, seed=73)
 SPLIT_FLAGS = ["-R", "1", "-X", "1000"]
+# phase 8: the ingest chunk and detect sub-chunk of a chromosome of
+# 134,217,728 bases or more (driver.py _auto_chunk_bases, DETECT_BASES)
+WIDE = {"GROM_TPU_CHUNK_BASES": str(16 << 20),
+        "GROM_TPU_DETECT_BASES": str(4 << 20)}
 
 
 def say(*a) -> None:
@@ -1364,7 +1377,119 @@ def phase_parallel() -> None:
     report_jobs("card -P 2 -R 1", t_card, reps)
 
 
+def run_child(argv, engine_name: str, env_extra: dict) -> dict:
+    """One run of the port's CLI in a fresh process (``cli_child``) with
+    GROM_TPU_TIMING=1; returns its wall seconds and its ``launches``,
+    ``peak_memory`` and ``k5_largest`` stderr lines, parsed."""
+    env = dict(os.environ, GROM_TPU_TORCH_ENGINE=engine_name,
+               GROM_TPU_TIMING="1", **env_extra)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--cli-child", *argv], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError("grom_tpu_torch %s (%s) exited %d:\n%s"
+                           % (argv, engine_name, r.returncode,
+                              r.stderr[-4000:]))
+    out = {"wall_s": time.perf_counter() - t0}
+    for ln in r.stderr.splitlines():
+        key, _, rest = ln.partition(" ")
+        if key in ("launches", "peak_memory", "k5_largest") and \
+                rest.startswith("{"):
+            out[key] = json.loads(rest)
+    for key in ("launches", "peak_memory"):
+        if key not in out:
+            raise AssertionError("%s run printed no %s line"
+                                 % (engine_name, key))
+    return out
+
+
+def cli_child(argv) -> int:
+    """``python chip_smoke.py --cli-child <CLI arguments>``: the port's CLI
+    (``cli.main``, as ``python -m grom_tpu_torch`` runs it) in this fresh
+    process, with K5's largest call (the most spans; its cells) printed as
+    a ``k5_largest {...}`` line on stderr when the run made one."""
+    sys.path.insert(0, REPO)
+    from grom_tpu_torch import cli
+    from grom_tpu_torch.ops import rd_depth
+    largest = {}
+    scatter = rd_depth.rd_scatter
+
+    def probe(spans, slot_of, lo, hi, L, min_mapq, seg_l, g0, ng, rows,
+              *rest):
+        n = int(spans.ref.shape[0])
+        if n > largest.get("spans", -1):
+            largest.update(spans=n, cells=int(rows.shape[0]),
+                           positions=hi - lo, seg_l=seg_l)
+        return scatter(spans, slot_of, lo, hi, L, min_mapq, seg_l, g0, ng,
+                       rows, *rest)
+    rd_depth.rd_scatter = probe
+    rc = cli.main(list(argv))
+    if largest:
+        print("k5_largest " + json.dumps(largest), file=sys.stderr,
+              flush=True)
+    return rc
+
+
+def phase_wide_chunks() -> None:
+    """Phase 5's chromosome at a human chromosome's ingest geometry, torch
+    and mesh engines in fresh processes, against phase 5's host output."""
+    say("== 8. 16 Mi ingest chunks, 4 Mi detect sub-chunks: %d Mb at %gx "
+        "on the torch and mesh engines" % (BULK["length"] // 10**6,
+                                           BULK["coverage"]))
+    args = bulk_args()
+    host_vcf = os.path.join(OUT, "bulk.host.vcf")
+    tiles = math.ceil(BULK["length"] / (1 << 18))
+    subchunks = sum(math.ceil((min(t0 + (16 << 20), BULK["length"]) - t0)
+                              / (4 << 20))
+                    for t0 in range(0, BULK["length"], 16 << 20))
+    for name in ("torch", "mesh"):
+        vcf = os.path.join(OUT, "bulk.wide.%s.vcf" % name)
+        res = run_child(args + ["-o", vcf], name, WIDE)
+        same_files(vcf, host_vcf)
+        launches = res["launches"]
+        path = TORCH_PATH + (MESH_ONLY if name == "mesh" else ())
+        for k in path:
+            if launches.get(k, 0) <= 0:
+                raise AssertionError("16 Mi %s run: kernel %s was not "
+                                     "launched" % (name, k))
+        if launches["tile_accumulate"] < tiles:
+            raise AssertionError("16 Mi %s run: %d tile launches < %d tiles"
+                                 % (name, launches["tile_accumulate"], tiles))
+        mem = res["peak_memory"]
+        card = mem["card"] or {}
+        if not card.get("max_allocated"):
+            raise AssertionError("16 Mi %s run: no peak card memory" % name)
+        say("16 Mi %s run: VCF and .ctx.vcf byte-identical to phase 5's host "
+            "output; %.2f s; launches %s" % (name, res["wall_s"],
+                                             json.dumps(launches)))
+        say("16 Mi %s run: peak_memory %s (host RSS %s GiB, %s; card %.1f "
+            "MiB allocated, %.1f MiB reserved)"
+            % (name, json.dumps(mem),
+               "-" if mem["rss_peak_kib"] is None
+               else "%.2f" % (mem["rss_peak_kib"] / 2**20),
+               mem["rss_source"], card["max_allocated"] / 2**20,
+               card["max_reserved"] / 2**20))
+        if name == "mesh":
+            k5 = res.get("k5_largest")
+            if not k5:
+                raise AssertionError("16 Mi mesh run: no K5 call recorded")
+            if launches["rd_scatter"] < subchunks or \
+                    launches["rd_scan"] < tiles:
+                raise AssertionError(
+                    "16 Mi mesh run: %d rd_scatter launches < %d detect "
+                    "sub-chunks or %d rd_scan < %d cells"
+                    % (launches["rd_scatter"], subchunks,
+                       launches["rd_scan"], tiles))
+            say("16 Mi mesh run: K5's largest run %d spans over %d cells of "
+                "%d positions (%d positions)" % (
+                    k5["spans"], k5["cells"], k5["seg_l"], k5["positions"]))
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--cli-child":
+        return cli_child(sys.argv[2:])
     if not os.path.isdir(os.path.join(REPO, "grom_tpu_torch")):
         print("chip_smoke.py: grom_tpu_torch is not beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -1386,6 +1511,7 @@ def main() -> int:
     res = phase_real_size()
     res.update(phase_real_size_mesh())
     phase_parallel()
+    phase_wide_chunks()
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax",
                                                               "grom_tpu")]
     if foreign:

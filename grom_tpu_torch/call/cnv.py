@@ -709,8 +709,14 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
                     z_dev[lo_z:hi_z])
         # the null model reads the PRE-rescore z (src/GROM.c:18975-19015)
         with _ph0("cnv.nullmodel_dev"):
-            gate_nm = (low_acgt == 0) & np.where(
-                mq >= cfg.min_mapq, nwin[0, gc] > 1, nwin[1, gc] > 1)
+            # in blocks, as the low_acgt mask above: the [L] int64 gathers
+            # of nwin would cost 16 bytes a base at once
+            gate_nm = np.empty(L, np.bool_)
+            for c0 in range(0, L, CHK):
+                sl = slice(c0, c0 + CHK)
+                gate_nm[sl] = (low_acgt[sl] == 0) & np.where(
+                    mq[sl] >= cfg.min_mapq, nwin[0, gc[sl]] > 1,
+                    nwin[1, gc[sl]] > 1)
             seg = cnv_device.null_segments(prep.lowvar_blocks,
                                            cfg.max_rd_window_len,
                                            cfg.sampling_rate)

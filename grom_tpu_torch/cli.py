@@ -21,6 +21,8 @@ launches and its peak card memory, and the parent adds the launches into
 from __future__ import annotations
 
 import getopt
+import io
+import json
 import multiprocessing
 import os
 import resource
@@ -151,6 +153,8 @@ def _init_worker(counter, n_workers: int, devices: Sequence[str],
     ``deal``'s device k becomes the current CUDA device, and the caching
     allocator is capped at the worker's share of it. If this raises, the
     pool breaks and the parent's ``map`` raises."""
+    from grom_tpu_torch.utils import peakmem
+    peakmem.start()
     with counter.get_lock():
         k = counter.value
         counter.value += 1
@@ -163,21 +167,7 @@ def _init_worker(counter, n_workers: int, devices: Sequence[str],
     if engine == "mesh":
         from grom_tpu_torch.parallel.mesh import make_mesh
         mesh = make_mesh(1, 1, devices=[device], group=None)
-    _WORKER.update(engine=engine, device=device, mesh=mesh)
-
-
-def _peak_rss_kib() -> Optional[int]:
-    """This process's peak resident set in KiB (VmHWM; None off Linux).
-    ``getrusage``'s ru_maxrss would not do: a spawned worker inherits its
-    parent's across the exec."""
-    try:
-        with open("/proc/self/status") as f:
-            for ln in f:
-                if ln.startswith("VmHWM:"):
-                    return int(ln.split()[1])
-    except OSError:
-        pass
-    return None
+    _WORKER.update(engine=engine, device=device, mesh=mesh, share=share)
 
 
 def _run_one_chromosome(args):
@@ -188,10 +178,16 @@ def _run_one_chromosome(args):
     records in memory; ctx candidate records (sparse) come back directly
     for the global merge. Returns ((refid, sub), part_path, n_rows,
     ctx_records, report): the report holds the job (refid, sub), the
-    worker's pid, engine and device, the job's kernel launches (``_build.LAUNCHES``), its peak card
-    memory (``torch.cuda.max_memory_allocated``; None off the card), its
-    wall and CPU seconds, and the worker's peak resident host memory
-    (``_peak_rss_kib``)."""
+    worker's pid, engine and device, the job's kernel launches
+    (``_build.LAUNCHES``), its peak card memory allocated and reserved
+    (``torch.cuda.max_memory_allocated``/``max_memory_reserved``; None off
+    the card) and the worker's share of its card (``deal``), its wall and
+    CPU seconds, the worker's peak resident host memory in KiB
+    (``utils/peakmem.py``; ``getrusage``'s ru_maxrss would not do: a
+    spawned worker inherits its parent's across the exec) and its label
+    (``rss_source``: ``vmhwm`` or ``sampled``), and under
+    GROM_TPU_TIMING=1 the wall seconds of the job's timed phases
+    (``phases``)."""
     cfg_json, refid, sub, rstart, rend, part_path = args
     engine, device, mesh = (_WORKER["engine"], _WORKER["device"],
                             _WORKER["mesh"])
@@ -205,29 +201,35 @@ def _run_one_chromosome(args):
     from grom_tpu_torch.ingest import fasta as fasta_mod
     from grom_tpu_torch.ingest.insert_size import load_or_estimate
     from grom_tpu_torch.stats import binom
+    from grom_tpu_torch.utils import timing
 
     start = time.perf_counter()
     ru0 = resource.getrusage(resource.RUSAGE_SELF)
     _build.reset_launches()
+    timing.reset()
     if on_card:
         import torch
         torch.cuda.reset_peak_memory_stats(device)
 
     def report():
+        from grom_tpu_torch.utils import peakmem
         ru = resource.getrusage(resource.RUSAGE_SELF)
-        peak = None
-        if on_card:
-            import torch
-            torch.cuda.synchronize(device)
-            peak = torch.cuda.max_memory_allocated(device)
-        return {"job": [refid, sub], "pid": os.getpid(), "engine": engine,
-                "device": device,
-                "launches": dict(_build.LAUNCHES),
-                "max_memory_allocated": peak,
-                "wall_s": time.perf_counter() - start,
-                "cpu_s": (ru.ru_utime - ru0.ru_utime
-                          + ru.ru_stime - ru0.ru_stime),
-                "max_rss_kib": _peak_rss_kib()}
+        card = peakmem.card_peak([device]) or {}
+        rss, source = peakmem.host_peak()
+        rep = {"job": [refid, sub], "pid": os.getpid(), "engine": engine,
+               "device": device,
+               "launches": dict(_build.LAUNCHES),
+               "max_memory_allocated": card.get("max_allocated"),
+               "max_memory_reserved": card.get("max_reserved"),
+               "memory_share": _WORKER.get("share"),
+               "wall_s": time.perf_counter() - start,
+               "cpu_s": (ru.ru_utime - ru0.ru_utime
+                         + ru.ru_stime - ru0.ru_stime),
+               "max_rss_kib": rss, "rss_source": source}
+        if timing.timing_enabled():
+            rep["phases"] = {k: v[0] for k, v in timing.report(
+                file=io.StringIO()).items()}
+        return rep
 
     cfg = GromConfig.from_json(cfg_json)
     info = fasta_mod.index_fasta(cfg.ref_fasta)
@@ -383,13 +385,32 @@ def run_parallel(cfg: GromConfig, engine: Optional[str] = None,
     return [r[4] for r in results]
 
 
+def _print_parallel_stats(reports: List[dict]) -> None:
+    """Under GROM_TPU_TIMING=1, on stderr: one ``parallel_job {...}`` JSON
+    line a job report, then the parent's ``launches`` (summed over the
+    jobs) and ``peak_memory`` lines, as the serial driver prints its own."""
+    from grom_tpu_torch import _build
+    from grom_tpu_torch.utils import peakmem, timing
+    if not timing.timing_enabled():
+        return
+    for rep in reports:
+        print("parallel_job " + json.dumps(rep), file=sys.stderr)
+    print("launches " + json.dumps(dict(_build.LAUNCHES)), file=sys.stderr)
+    print("peak_memory " + json.dumps(peakmem.report()), file=sys.stderr,
+          flush=True)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
     if cfg is None:
         return 1
+    from grom_tpu_torch.utils import peakmem, timing
+    if timing.timing_enabled():
+        peakmem.start()
     try:
         if cfg.processes > 1:
-            run_parallel(cfg)
+            reports = run_parallel(cfg)
+            _print_parallel_stats(reports)
         else:
             from grom_tpu_torch.driver import run
             run(cfg)

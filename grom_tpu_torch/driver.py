@@ -121,7 +121,10 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
     check_device(engine, device)
     if cfg.one_chromosome:
         return run_child_region(cfg, engine, device, mesh)
-    from grom_tpu_torch.utils.timing import phase, report
+    from grom_tpu_torch.utils import peakmem
+    from grom_tpu_torch.utils.timing import phase, report, timing_enabled
+    if timing_enabled():
+        peakmem.start()
     # progress prints mirroring the reference's stdout (src/GROM.c:22106-22111,
     # :22274-22275, :1421-1426)
     print("bam %s" % cfg.bam)
@@ -218,7 +221,30 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
                               file_date)
     print("Translocations after filter: %d" % n_bnd, flush=True)
     report()
+    if timing_enabled():
+        _print_run_stats(engine, device, mesh)
     return RunResult(cfg.out_vcf, ctx_path, n_records, ins)
+
+
+def _print_run_stats(engine: str, device, mesh) -> None:
+    """The run's kernel launches (``_build.LAUNCHES``) and its peak host and
+    card memory (``utils/peakmem.py``), one JSON line each on stderr:
+    ``launches {...}`` and ``peak_memory {...}``."""
+    import json
+
+    from grom_tpu_torch import _build
+    from grom_tpu_torch.utils import peakmem
+    devices = []
+    if engine in ("torch", "mesh"):
+        devices = [device]
+        if mesh is not None:
+            devices = list(mesh.devices)
+        elif engine == "mesh":
+            from grom_tpu_torch.parallel.pipeline import get_mesh_accumulator
+            devices = list(get_mesh_accumulator(device).mesh.devices)
+    print("launches " + json.dumps(dict(_build.LAUNCHES)), file=sys.stderr)
+    print("peak_memory " + json.dumps(peakmem.report(devices)),
+          file=sys.stderr, flush=True)
 
 
 def _chromosome_stream(cfg: GromConfig, header, info, jobs, reads,
@@ -648,6 +674,43 @@ class _ChunkDetect:
                 break
 
 
+def _accumulate_rd_window(rd_mq: np.ndarray, rd_hi: np.ndarray,
+                          rd_lo: np.ndarray, L: int, batch,
+                          eligible: np.ndarray, cfg: GromConfig, lo: int,
+                          hi: int) -> None:
+    """``scan._accumulate_rd_lists`` of the ingest chunk [lo, hi) in
+    O(hi - lo + spans): the same spans (kept on the whole-span rule
+    against L, clipped to [lo, hi)), their endpoint counts summed over the
+    window only and added into the lists' window, where
+    ``_accumulate_rd_lists`` sums over the whole chromosome (four [L]
+    int64 arrays a list, each call). Every count is an integer, so the
+    lists are the same."""
+    sel = eligible[batch.span_read]
+    ref = batch.span_ref[sel]
+    ln = batch.span_len[sel]
+    rid = batch.span_read[sel]
+    ok = (ref >= 0) & (ref + ln < L)
+    ref, ln, rid = ref[ok], ln[ok], rid[ok]
+    mapq = batch.mapq[rid]
+    s_cl = np.maximum(ref, lo)
+    e_cl = np.minimum(ref + ln, hi)
+    keep = e_cl > s_cl
+    s_cl, e_cl, mapq = s_cl[keep] - lo, e_cl[keep] - lo, mapq[keep]
+    hi_m = mapq >= cfg.min_mapq
+    n = hi - lo
+
+    def depth(starts, ends, weights=None):
+        # mapq sums stay far below 2^53, so the f64 bincount is exact
+        d = (np.bincount(starts, weights, minlength=n + 1)
+             - np.bincount(ends, weights, minlength=n + 1))
+        return np.cumsum(d[:n].astype(np.int64))
+
+    rd_mq[lo:hi] += depth(s_cl, e_cl, mapq.astype(np.float64)).astype(
+        rd_mq.dtype)
+    rd_hi[lo:hi] += depth(s_cl[hi_m], e_cl[hi_m]).astype(np.int32)
+    rd_lo[lo:hi] += depth(s_cl[~hi_m], e_cl[~hi_m]).astype(np.int32)
+
+
 def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                              cfg: GromConfig, drv: DerivedConfig,
                              mq_table: np.ndarray, hez_table: np.ndarray,
@@ -807,9 +870,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
             if device_engine and not mesh_mode:
                 # the depth lists stay host-side on the torch engine
                 with phase("scan.accumulate"):
-                    scan_mod._accumulate_rd_lists(
-                        _RdView(rd_mq, rd_hi, rd_lo, L), batch_all, elig,
-                        cfg, lo=t0, hi=t1)
+                    _accumulate_rd_window(rd_mq, rd_hi, rd_lo, L, batch_all,
+                                          elig, cfg, t0, t1)
         for d0 in range(t0, t1, D):
             d1 = min(d0 + D, t1)
             if n:

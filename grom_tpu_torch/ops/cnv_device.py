@@ -124,17 +124,19 @@ F_GCLS1 = 8     # the last gated-definite base at or before p is class 1
 F_GDEF = 16     # p itself is gated-definite
 
 
-def pack_flags(lowa, sok0, sok1, gcls_idx, gcls_val) -> np.ndarray:
+def pack_flags(lowa, sok0, sok1, gcls_idx, gcls_val, base: int = 0
+               ) -> np.ndarray:
     """The per-base flag byte of the window walk from its numpy state:
     ``lowa``/``sok0``/``sok1`` bool, ``gcls_idx`` int64 (last
     gated-definite position at or before p, -1 if none; a running maximum,
     so ``gcls_idx[p] >= seed`` holds exactly when a gated-definite base
-    lies in [seed, p]), ``gcls_val`` (its class)."""
+    lies in [seed, p]), ``gcls_val`` (its class); the arrays cover the
+    positions from ``base`` on."""
     u8 = np.uint8
     return (lowa.astype(u8) * u8(F_LOWA) | sok0.astype(u8) * u8(F_SOK0)
             | sok1.astype(u8) * u8(F_SOK1)
             | (gcls_val == 1).astype(u8) * u8(F_GCLS1)
-            | (gcls_idx == np.arange(len(gcls_idx))).astype(u8)
+            | (gcls_idx == np.arange(base, base + len(gcls_idx))).astype(u8)
             * u8(F_GDEF))
 
 
@@ -578,30 +580,40 @@ def seed_eval(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
     return seed_eval_plain(si, seeds, seed_cls, minw, maxw, max_low, be)
 
 
+# positions a block of seed_inputs' temporaries covers
+SEED_INPUT_BLOCK = 1 << 24
+
+
 def seed_inputs(depth, mq, gc, low_acgt, stdev_list, thr, win_std, cfg,
                 L: int, side: int, device):
     """Host-side per-base state of the window scan (numpy) and the kernel's
     inputs on ``device``. Returns (defc, gcls_idx, sok0, sok1, svals, lowa,
-    SeedInputs)."""
+    SeedInputs). The threshold gathers, the class of ``gcls_idx`` and the
+    flag byte are made ``SEED_INPUT_BLOCK`` positions at a time, so beyond
+    what it returns (21 bytes a base) it holds a block's temporaries
+    only."""
     defc = np.where(mq >= cfg.min_mapq, np.int8(0),
                     np.where(depth > 0, np.int8(1), np.int8(-1)))
-    idx = np.arange(L, dtype=np.int64)
     lowa = low_acgt == 0
-    gcls_idx = np.where(lowa & (defc >= 0), idx, np.int64(-1))
+    gcls_idx = np.arange(L, dtype=np.int64)
+    gcls_idx[~(lowa & (defc >= 0))] = -1
     np.maximum.accumulate(gcls_idx, out=gcls_idx)
-    gcls_val = defc[np.maximum(gcls_idx, 0)]
-    if side > 0:
-        sok0 = depth <= thr[0, gc]
-        sok1 = depth <= thr[1, gc]
-    else:
-        sok0 = depth >= thr[0, gc]
-        sok1 = depth >= thr[1, gc]
+    sok0 = np.empty(L, np.bool_)
+    sok1 = np.empty(L, np.bool_)
+    flags = np.empty(L, np.uint8)
+    cmp = np.less_equal if side > 0 else np.greater_equal
+    for b0 in range(0, L, SEED_INPUT_BLOCK):
+        sl = slice(b0, min(b0 + SEED_INPUT_BLOCK, L))
+        g = gc[sl]
+        cmp(depth[sl], thr[0, g], out=sok0[sl])
+        cmp(depth[sl], thr[1, g], out=sok1[sl])
+        # the class at gcls_idx, defc[0] where it is -1
+        flags[sl] = pack_flags(lowa[sl], sok0[sl], sok1[sl], gcls_idx[sl],
+                               np.take(defc, gcls_idx[sl], mode="clip"), b0)
     svals = side * stdev_list
     to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(
         device)
-    si = SeedInputs(svals=to(svals, np.float64),
-                    flags=to(pack_flags(lowa, sok0, sok1, gcls_idx,
-                                        gcls_val), np.uint8),
+    si = SeedInputs(svals=to(svals, np.float64), flags=to(flags, np.uint8),
                     win_std=to(win_std, np.float64))
     return defc, gcls_idx, sok0, sok1, svals, lowa, si
 
@@ -640,7 +652,11 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
         cand = np.flatnonzero((sok0 | sok1)[bs:be]) + bs
         if not len(cand):
             continue
-        pos_to_i = {int(p): i for i, p in enumerate(cand)}
+        # candidate index by position - bs: 4 bytes a position and no
+        # Python object a candidate
+        pos_to_i = np.full(be - bs, -1, np.int32)
+        pos_to_i[cand - bs] = np.arange(len(cand), dtype=np.int32)
+        pos_to_i = memoryview(pos_to_i)
         batches = {0: (0, 0, None), 1: (0, 0, None)}
 
         def evaluate(i0, cls):
@@ -667,7 +683,7 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
             if not sok_cls[pos]:
                 pos += 1
                 continue
-            i = pos_to_i[pos]
+            i = pos_to_i[pos - bs]
             b_lo, b_hi, res = batches[mq_index]
             if not b_lo <= i < b_hi:
                 b_lo, b_hi, res = batches[mq_index] = evaluate(i, mq_index)

@@ -1,9 +1,9 @@
 """grom_tpu_torch stands alone: it imports nothing of grom_tpu or jax,
 builds its own native library, and runs on the CPU only when asked to.
 
-* Every module of the port, and chip_smoke.py, imports no module of jax or
-  grom_tpu, at the top or inside a function (an AST scan, one case per
-  file).
+* Every module of the port, chip_smoke.py and tools/torch_scale.py import
+  no module of jax or grom_tpu, at the top or inside a function (an AST
+  scan, one case per file).
 * The port's native library builds from native/*.c with ``cc`` into its
   own build directory; nothing runs ``make`` or writes into native/.
 * GROM_TPU_TORCH_ENGINE=auto (the default) with no CUDA device raises and
@@ -29,7 +29,7 @@ DATA = os.path.join(REPO, "tests", "data")
 FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, "grom_tpu_torch", "**", "*.py"), recursive=True)
     if os.path.getsize(p))
-FILES.append("chip_smoke.py")
+FILES += ["chip_smoke.py", os.path.join("tools", "torch_scale.py")]
 FOREIGN = ("jax", "jaxlib", "grom_tpu")
 
 
