@@ -19,7 +19,9 @@ non-zero without its result line:
    the card, at 60 kb ingest chunks, so the depth carry crosses cells,
    launches and chunks on the card;
 5. real size: one 24 Mb chromosome at 30x (grom_tpu_torch.testing.bulk_sim,
-   seed 5), host engine then torch engine, VCF and .ctx.vcf byte-identical;
+   seed 5), host engine (the CLI in a fresh process, with its
+   ``peak_memory`` line) then torch engine, VCF and .ctx.vcf
+   byte-identical;
    the launch counts of the torch run, its phases ``scan.device``,
    ``cnv.zscores_dev``, ``cnv.nullmodel_dev`` and ``call.sv_detect``, the
    host time of one ``SvScorer`` call on the largest SV window, every
@@ -62,7 +64,9 @@ non-zero without its result line:
    sub-chunks), VCF and .ctx.vcf byte-identical to phase 5's host output;
    each run's launches (every kernel of its path), its ``peak_memory``
    line (peak host RSS with its label, peak card memory) and, on the mesh
-   engine, K5's largest run (spans and cells).
+   engine, K5's largest run (spans and cells); then the peak host RSS at
+   each timed phase's last end (the timing table's ``livemax``) of these
+   two runs and of phase 5's host run, in the order the peak grew.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table (each kernel's time beside its bound: the larger of
@@ -171,6 +175,10 @@ SPLIT_FLAGS = ["-R", "1", "-X", "1000"]
 # 134,217,728 bases or more (driver.py _auto_chunk_bases, DETECT_BASES)
 WIDE = {"GROM_TPU_CHUNK_BASES": str(16 << 20),
         "GROM_TPU_DETECT_BASES": str(4 << 20)}
+
+
+# phase 5's host run (``run_child``), whose peaks phase 8 prints
+HOST_RUN: dict = {}
 
 
 def say(*a) -> None:
@@ -917,7 +925,8 @@ def phase_real_size() -> dict:
     args = bulk_args()
     host_vcf = os.path.join(OUT, "bulk.host.vcf")
     dev_vcf = os.path.join(OUT, "bulk.torch.vcf")
-    t_host = run_cli(args + ["-o", host_vcf], "host")
+    HOST_RUN.update(run_child(args + ["-o", host_vcf], "host", {}))
+    t_host = HOST_RUN["wall_s"]
 
     timing.timing_enable(True)
     timing.reset()
@@ -1409,22 +1418,25 @@ def cli_child(argv) -> int:
     """``python chip_smoke.py --cli-child <CLI arguments>``: the port's CLI
     (``cli.main``, as ``python -m grom_tpu_torch`` runs it) in this fresh
     process, with K5's largest call (the most spans; its cells) printed as
-    a ``k5_largest {...}`` line on stderr when the run made one."""
+    a ``k5_largest {...}`` line on stderr when the run made one. Only a
+    mesh-engine run imports torch here: a host-engine run's memory is the
+    CLI's own."""
     sys.path.insert(0, REPO)
     from grom_tpu_torch import cli
-    from grom_tpu_torch.ops import rd_depth
     largest = {}
-    scatter = rd_depth.rd_scatter
+    if os.environ.get("GROM_TPU_TORCH_ENGINE") == "mesh":
+        from grom_tpu_torch.ops import rd_depth
+        scatter = rd_depth.rd_scatter
 
-    def probe(spans, slot_of, lo, hi, L, min_mapq, seg_l, g0, ng, rows,
-              *rest):
-        n = int(spans.ref.shape[0])
-        if n > largest.get("spans", -1):
-            largest.update(spans=n, cells=int(rows.shape[0]),
-                           positions=hi - lo, seg_l=seg_l)
-        return scatter(spans, slot_of, lo, hi, L, min_mapq, seg_l, g0, ng,
-                       rows, *rest)
-    rd_depth.rd_scatter = probe
+        def probe(spans, slot_of, lo, hi, L, min_mapq, seg_l, g0, ng, rows,
+                  *rest):
+            n = int(spans.ref.shape[0])
+            if n > largest.get("spans", -1):
+                largest.update(spans=n, cells=int(rows.shape[0]),
+                               positions=hi - lo, seg_l=seg_l)
+            return scatter(spans, slot_of, lo, hi, L, min_mapq, seg_l, g0,
+                           ng, rows, *rest)
+        rd_depth.rd_scatter = probe
     rc = cli.main(list(argv))
     if largest:
         print("k5_largest " + json.dumps(largest), file=sys.stderr,
@@ -1444,6 +1456,7 @@ def phase_wide_chunks() -> None:
     subchunks = sum(math.ceil((min(t0 + (16 << 20), BULK["length"]) - t0)
                               / (4 << 20))
                     for t0 in range(0, BULK["length"], 16 << 20))
+    peaks = {"host": HOST_RUN["peak_memory"]}
     for name in ("torch", "mesh"):
         vcf = os.path.join(OUT, "bulk.wide.%s.vcf" % name)
         res = run_child(args + ["-o", vcf], name, WIDE)
@@ -1485,6 +1498,23 @@ def phase_wide_chunks() -> None:
             say("16 Mi mesh run: K5's largest run %d spans over %d cells of "
                 "%d positions (%d positions)" % (
                     k5["spans"], k5["cells"], k5["seg_l"], k5["positions"]))
+        peaks[name] = mem
+    for name in ("host", "torch", "mesh"):
+        say_phase_peaks("16 Mi %s run" % name if name != "host" else
+                        "phase 5's host run (default geometry)", peaks[name])
+
+
+def say_phase_peaks(label: str, mem: dict) -> None:
+    """One line: the peak host RSS (GiB) at each timed phase's last end
+    (``peak_memory``'s ``phase_rss_kib``), in the order the peak grew, and
+    the run's peak. Raises when a phase has no reading."""
+    rss = mem.get("phase_rss_kib") or {}
+    if not rss or min(rss.values()) <= 0:
+        raise AssertionError("%s: no per-phase peak RSS: %s" % (label, rss))
+    say("%s: peak RSS %.3f GiB (%s); at each phase's last end, GiB: %s"
+        % (label, mem["rss_peak_kib"] / 2**20, mem["rss_source"],
+           ", ".join("%s %.3f" % (k, v / 2**20) for k, v in
+                     sorted(rss.items(), key=lambda kv: kv[1]))))
 
 
 def main() -> int:

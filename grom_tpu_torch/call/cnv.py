@@ -707,6 +707,7 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
                                    cfg.ranks_stdev != 0, z_dev[lo_z:hi_z])
                 torch.from_numpy(stdev_list)[lo_z:hi_z].copy_(
                     z_dev[lo_z:hi_z])
+                del zin, tables
         # the null model reads the PRE-rescore z (src/GROM.c:18975-19015)
         with _ph0("cnv.nullmodel_dev"):
             # in blocks, as the low_acgt mask above: the [L] int64 gathers
@@ -723,6 +724,7 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
             win_std = cnv_device.null_model(
                 z_dev, state.to_device(gate_nm, np.bool_, device), seg,
                 cfg.min_rd_window_len, cfg.max_rd_window_len)
+            del z_dev, gate_nm
         if prep.most_biased_repeat != -1:
             with _ph0("cnv.rescore"):
                 _repeat_rescore(feats, prep, depth, low_acgt, acgt,

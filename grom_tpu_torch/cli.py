@@ -187,7 +187,8 @@ def _run_one_chromosome(args):
     spawned worker inherits its parent's across the exec) and its label
     (``rss_source``: ``vmhwm`` or ``sampled``), and under
     GROM_TPU_TIMING=1 the wall seconds of the job's timed phases
-    (``phases``)."""
+    (``phases``) and the worker's peak RSS at each one's last end
+    (``phase_rss_kib``)."""
     cfg_json, refid, sub, rstart, rend, part_path = args
     engine, device, mesh = (_WORKER["engine"], _WORKER["device"],
                             _WORKER["mesh"])
@@ -227,8 +228,10 @@ def _run_one_chromosome(args):
                          + ru.ru_stime - ru0.ru_stime),
                "max_rss_kib": rss, "rss_source": source}
         if timing.timing_enabled():
-            rep["phases"] = {k: v[0] for k, v in timing.report(
-                file=io.StringIO()).items()}
+            from grom_tpu_torch.driver import phase_rss_kib
+            snap = timing.report(file=io.StringIO())
+            rep["phases"] = {k: v[0] for k, v in snap.items()}
+            rep["phase_rss_kib"] = phase_rss_kib(snap)
         return rep
 
     cfg = GromConfig.from_json(cfg_json)

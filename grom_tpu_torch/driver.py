@@ -26,6 +26,7 @@ a card raises, and so does the default engine choice.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 from dataclasses import dataclass
@@ -220,16 +221,23 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
         n_bnd = write_ctx_vcf(ctx_path, all_ctx, header.ref_names, cfg, drv,
                               file_date)
     print("Translocations after filter: %d" % n_bnd, flush=True)
-    report()
+    snap = report()
     if timing_enabled():
-        _print_run_stats(engine, device, mesh)
+        _print_run_stats(engine, device, mesh, snap)
     return RunResult(cfg.out_vcf, ctx_path, n_records, ins)
 
 
-def _print_run_stats(engine: str, device, mesh) -> None:
+def phase_rss_kib(snap: dict) -> Dict[str, int]:
+    """Each timed phase's ``livemax`` (``utils/timing.py report``'s
+    snapshot): the peak host RSS, in KiB, at the phase's last end."""
+    return {k: v[6] >> 10 for k, v in snap.items()}
+
+
+def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     """The run's kernel launches (``_build.LAUNCHES``) and its peak host and
     card memory (``utils/peakmem.py``), one JSON line each on stderr:
-    ``launches {...}`` and ``peak_memory {...}``."""
+    ``launches {...}`` and ``peak_memory {...}``, the latter with the
+    timed phases' peaks (``phase_rss_kib``)."""
     import json
 
     from grom_tpu_torch import _build
@@ -243,8 +251,9 @@ def _print_run_stats(engine: str, device, mesh) -> None:
             from grom_tpu_torch.parallel.pipeline import get_mesh_accumulator
             devices = list(get_mesh_accumulator(device).mesh.devices)
     print("launches " + json.dumps(dict(_build.LAUNCHES)), file=sys.stderr)
-    print("peak_memory " + json.dumps(peakmem.report(devices)),
-          file=sys.stderr, flush=True)
+    mem = peakmem.report(devices)
+    mem["phase_rss_kib"] = phase_rss_kib(snap)
+    print("peak_memory " + json.dumps(mem), file=sys.stderr, flush=True)
 
 
 def _chromosome_stream(cfg: GromConfig, header, info, jobs, reads,
@@ -699,16 +708,44 @@ def _accumulate_rd_window(rd_mq: np.ndarray, rd_hi: np.ndarray,
     hi_m = mapq >= cfg.min_mapq
     n = hi - lo
 
-    def depth(starts, ends, weights=None):
-        # mapq sums stay far below 2^53, so the f64 bincount is exact
-        d = (np.bincount(starts, weights, minlength=n + 1)
-             - np.bincount(ends, weights, minlength=n + 1))
-        return np.cumsum(d[:n].astype(np.int64))
+    def add_depth(out, starts, ends, weights=None):
+        # the window's endpoint counts, summed in place (two [n] arrays at
+        # a time) and added into out's window; mapq sums stay far below
+        # 2^53, so the f64 counts and their running sums are exact
+        d = np.bincount(starts, weights, minlength=n + 1)
+        d -= np.bincount(ends, weights, minlength=n + 1)
+        np.cumsum(d, out=d)
+        np.add(out[lo:hi], d[:n], out=out[lo:hi], casting="unsafe")
 
-    rd_mq[lo:hi] += depth(s_cl, e_cl, mapq.astype(np.float64)).astype(
-        rd_mq.dtype)
-    rd_hi[lo:hi] += depth(s_cl[hi_m], e_cl[hi_m]).astype(np.int32)
-    rd_lo[lo:hi] += depth(s_cl[~hi_m], e_cl[~hi_m]).astype(np.int32)
+    add_depth(rd_mq, s_cl, e_cl, mapq.astype(np.float64))
+    add_depth(rd_hi, s_cl[hi_m], e_cl[hi_m])
+    add_depth(rd_lo, s_cl[~hi_m], e_cl[~hi_m])
+
+
+def _batch_for_range(batch, eligible: np.ndarray, lo: int, hi: int):
+    """(batch, eligible) cut to the reads with an M-span overlapping
+    [lo, hi), every span of theirs kept in its order, and their
+    eligibility: what a device job on [lo, hi) reads (``SpanIndex`` and
+    ``tile_inputs`` clip spans to the range; the mesh engine's depth
+    lists clip them too)."""
+    hit = (batch.span_ref < hi) & (batch.span_ref + batch.span_len > lo)
+    sel = np.unique(batch.span_read[hit])
+    R = len(batch.pos)
+    if len(sel) == R:
+        return batch, eligible
+    new_id = np.full(R, -1, np.int64)
+    new_id[sel] = np.arange(len(sel))
+    ids = new_id[batch.span_read]
+    ks = ids >= 0
+    per_read = {f.name: getattr(batch, f.name)[sel]
+                for f in dataclasses.fields(batch)
+                if not f.name.startswith("span_") and f.name != "reads"
+                and getattr(batch, f.name) is not None}
+    sub = dataclasses.replace(
+        batch, **per_read, span_read=ids[ks].astype(batch.span_read.dtype),
+        span_ref=batch.span_ref[ks], span_readoff=batch.span_readoff[ks],
+        span_len=batch.span_len[ks], reads=_subset_reads(batch.reads, sel))
+    return sub, eligible[sel]
 
 
 def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
@@ -828,10 +865,17 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     chunk_q: "queue.Queue" = queue.Queue(maxsize=1)
     ranges = [(t0, min(t0 + C, L)) for t0 in range(0, L, C)]
     sync = _sync_ingest() and not force_async
+    # a device engine's producer decodes one chunk ahead of the main
+    # thread, not two (one queued and one waiting to be): its process also
+    # holds the previous chunk's last device job, and a second chunk ahead
+    # set its peak host memory
+    taken = threading.Semaphore(0) if device_engine else None
 
     def chunk_producer():
         try:
-            for (f0, f1) in ranges:
+            for k, (f0, f1) in enumerate(ranges):
+                if taken is not None and k > 0:
+                    taken.acquire()
                 with phase("ingest.read_bam"):
                     chunk_q.put((f0, f1, fetch(f0, f1)))
         except BaseException as exc:
@@ -848,6 +892,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                 item = (rng[0], rng[1], fetch(rng[0], rng[1]))
         else:
             item = chunk_q.get()
+            if taken is not None:
+                taken.release()
         if isinstance(item, BaseException):
             raise item
         t0, t1, creads = item
@@ -922,8 +968,14 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
             while len(fed) > 1:
                 if not drain_one():
                     return None
-        # drop this chunk's decoded tensors NOW (the device path's queued
-        # jobs hold their own reference via `fed`)
+        # drop this chunk's decoded tensors NOW. The device path's queued
+        # job (the chunk's last sub-chunk, drained after the next chunk's
+        # first one is fed) keeps only the reads it reads: with the whole
+        # batch it would hold a second chunk of reads across the boundary
+        if device_engine and batch_all is not None:
+            fed[:] = [(f0, f1, *_batch_for_range(fb, fe, f0, f1), fs)
+                      if fb is batch_all else (f0, f1, fb, fe, fs)
+                      for f0, f1, fb, fe, fs in fed]
         del creads
         batch_all = None
 

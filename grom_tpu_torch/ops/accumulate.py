@@ -117,11 +117,18 @@ class SpanIndex:
     the host-side tiling step. Splitting spans at tile edges keeps every
     per-base statistic position-local, so tiling is exact."""
 
-    def __init__(self, batch):
-        sref = batch.span_ref.astype(np.int64)
-        slen = batch.span_len.astype(np.int64)
-        sread = batch.span_read.astype(np.int64)
-        soff = batch.span_readoff.astype(np.int64)
+    def __init__(self, batch, lo: int = 0, hi: int = 0):
+        """With ``hi > lo``, only the spans overlapping [lo, hi): the
+        tiles of that range slice the same spans in the same order."""
+        sref, slen = batch.span_ref, batch.span_len
+        sread, soff = batch.span_read, batch.span_readoff
+        if hi > lo:
+            m = (sref < hi) & (sref + slen > lo)
+            sref, slen, sread, soff = sref[m], slen[m], sread[m], soff[m]
+        sref = sref.astype(np.int64)
+        slen = slen.astype(np.int64)
+        sread = sread.astype(np.int64)
+        soff = soff.astype(np.int64)
         if len(sref):
             order = np.argsort(sref, kind="stable")
             sref, slen, sread, soff = (sref[order], slen[order],
@@ -571,7 +578,7 @@ class TorchAccumulator:
                              "decode the reads with their names")
         L = len(chrom)
         hi = hi if hi > 0 else L
-        sindex = SpanIndex(batch)
+        sindex = SpanIndex(batch, lo, hi)
         part = chrom[lo:hi]
         up = np.where(part >= 97, part - 32, part).astype(np.uint8)
         is_n = up == ord("N")

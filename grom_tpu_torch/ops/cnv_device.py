@@ -122,6 +122,10 @@ F_SOK0 = 2      # passes the class-0 seed threshold
 F_SOK1 = 4      # passes the class-1 seed threshold
 F_GCLS1 = 8     # the last gated-definite base at or before p is class 1
 F_GDEF = 16     # p itself is gated-definite
+# bits of the host walk's flag byte beyond pack_flags' (``seed_inputs``);
+# the kernel and its plain version read none of them
+F_DEF = 32      # p is definite: mq >= min_mapq, or depth > 0
+F_CLS1 = 64     # p is definite of class 1: mq below min_mapq, depth > 0
 
 
 def pack_flags(lowa, sok0, sok1, gcls_idx, gcls_val, base: int = 0
@@ -580,42 +584,114 @@ def seed_eval(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
     return seed_eval_plain(si, seeds, seed_cls, minw, maxw, max_low, be)
 
 
-# positions a block of seed_inputs' temporaries covers
-SEED_INPUT_BLOCK = 1 << 24
+# positions a block of seed_inputs' temporaries covers, and a block of the
+# walk's candidate search and of its candidate index (4 bytes a position)
+SEED_INPUT_BLOCK = 1 << 22
+WALK_BLOCK = 1 << 22
 
 
-def seed_inputs(depth, mq, gc, low_acgt, stdev_list, thr, win_std, cfg,
-                L: int, side: int, device):
-    """Host-side per-base state of the window scan (numpy) and the kernel's
-    inputs on ``device``. Returns (defc, gcls_idx, sok0, sok1, svals, lowa,
-    SeedInputs). The threshold gathers, the class of ``gcls_idx`` and the
-    flag byte are made ``SEED_INPUT_BLOCK`` positions at a time, so beyond
-    what it returns (21 bytes a base) it holds a block's temporaries
-    only."""
-    defc = np.where(mq >= cfg.min_mapq, np.int8(0),
-                    np.where(depth > 0, np.int8(1), np.int8(-1)))
-    lowa = low_acgt == 0
-    gcls_idx = np.arange(L, dtype=np.int64)
-    gcls_idx[~(lowa & (defc >= 0))] = -1
-    np.maximum.accumulate(gcls_idx, out=gcls_idx)
-    sok0 = np.empty(L, np.bool_)
-    sok1 = np.empty(L, np.bool_)
+def seed_inputs(depth, mq, gc, low_acgt, thr, cfg, L: int, side: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """The window walk's host state over [0, L), 5 bytes a base: ``flags``
+    uint8 (``pack_flags``' bits, which ``seed_eval`` reads, and ``F_DEF`` /
+    ``F_CLS1``, the base's own class, which only the walk reads) and
+    ``gcls_idx`` int32 (the last gated-definite position at or before p,
+    -1 if none). Made ``SEED_INPUT_BLOCK`` positions at a time, carrying
+    the last gated-definite base across blocks, so beyond what it returns
+    it holds a block's temporaries only."""
+    if L >= 1 << 31:
+        raise ValueError("the window walk indexes positions in int32: a "
+                         "chromosome of %d bases is too long" % L)
     flags = np.empty(L, np.uint8)
+    gcls_idx = np.empty(L, np.int32)
     cmp = np.less_equal if side > 0 else np.greater_equal
+    u8 = np.uint8
+    last_idx, last_cls = -1, None
     for b0 in range(0, L, SEED_INPUT_BLOCK):
         sl = slice(b0, min(b0 + SEED_INPUT_BLOCK, L))
-        g = gc[sl]
-        cmp(depth[sl], thr[0, g], out=sok0[sl])
-        cmp(depth[sl], thr[1, g], out=sok1[sl])
-        # the class at gcls_idx, defc[0] where it is -1
-        flags[sl] = pack_flags(lowa[sl], sok0[sl], sok1[sl], gcls_idx[sl],
-                               np.take(defc, gcls_idx[sl], mode="clip"), b0)
-    svals = side * stdev_list
-    to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(
-        device)
-    si = SeedInputs(svals=to(svals, np.float64), flags=to(flags, np.uint8),
-                    win_std=to(win_std, np.float64))
-    return defc, gcls_idx, sok0, sok1, svals, lowa, si
+        defc = np.where(mq[sl] >= cfg.min_mapq, np.int8(0),
+                        np.where(depth[sl] > 0, np.int8(1), np.int8(-1)))
+        if last_cls is None:
+            # the class read where no gated-definite base precedes p: the
+            # first base's
+            last_cls = defc[0]
+        lowa = low_acgt[sl] == 0
+        g = gcls_idx[sl]
+        g[:] = np.arange(b0, sl.stop, dtype=np.int32)
+        g[~(lowa & (defc >= 0))] = -1
+        np.maximum.accumulate(g, out=g)
+        np.maximum(g, last_idx, out=g)
+        inb = g >= b0
+        gval = np.where(inb, defc[np.where(inb, g - b0, 0)], last_cls)
+        gk = gc[sl]
+        flags[sl] = (pack_flags(lowa, cmp(depth[sl], thr[0, gk]),
+                                cmp(depth[sl], thr[1, gk]), g, gval, b0)
+                     | (defc >= 0).astype(u8) * u8(F_DEF)
+                     | (defc == 1).astype(u8) * u8(F_CLS1))
+        last_idx, last_cls = int(g[-1]), gval[-1]
+    return flags, gcls_idx
+
+
+def device_seed_inputs(flags: np.ndarray, stdev_list: np.ndarray,
+                       win_std: np.ndarray, side: int, device) -> SeedInputs:
+    """``seed_eval``'s inputs on ``device``: the walk's ``flags`` and the
+    side-signed z (``side * stdev_list``, negated on the device: no signed
+    copy on the host)."""
+    z = torch.from_numpy(np.ascontiguousarray(stdev_list, np.float64))
+    svals = z.to(device) if side > 0 else z.to(device, copy=True).neg_()
+    return SeedInputs(svals=svals, flags=torch.from_numpy(flags).to(device),
+                      win_std=torch.from_numpy(np.ascontiguousarray(
+                          win_std, np.float64)).to(device))
+
+
+def walk_candidates(flags: np.ndarray, bs: int, be: int) -> np.ndarray:
+    """The positions in [bs, be) that pass either class's seed threshold,
+    int32 ascending: counted, then filled ``WALK_BLOCK`` positions at a
+    time."""
+    mask = np.uint8(F_SOK0 | F_SOK1)
+    starts = range(bs, be, WALK_BLOCK)
+    counts = [np.count_nonzero(flags[b0:min(b0 + WALK_BLOCK, be)] & mask)
+              for b0 in starts]
+    cand = np.empty(sum(counts), np.int32)
+    k = 0
+    for b0, c in zip(starts, counts):
+        cand[k:k + c] = np.flatnonzero(
+            flags[b0:min(b0 + WALK_BLOCK, be)] & mask) + b0
+        k += c
+    return cand
+
+
+def _walk_index(cand: np.ndarray, w0: int, w1: int) -> memoryview:
+    """Position - w0 -> index in ``cand`` over [w0, w1) (-1 elsewhere):
+    4 bytes a position, no Python object a candidate."""
+    a, b = np.searchsorted(cand, (w0, w1))
+    idx = np.full(w1 - w0, -1, np.int32)
+    idx[cand[a:b] - w0] = np.arange(a, b, dtype=np.int32)
+    return memoryview(idx)
+
+
+class _Bit:
+    """p -> bit ``bit`` of the flag byte at p (0 or the bit): the walk's
+    lowa/sok0/sok1 as ``_slide_phase`` and ``_trim_phase`` index them."""
+    __slots__ = ("fl", "bit")
+
+    def __init__(self, fl: memoryview, bit: int):
+        self.fl, self.bit = fl, bit
+
+    def __getitem__(self, p):
+        return self.fl[p] & self.bit
+
+
+class _Negated:
+    """p -> -z[p]: the DUP side's signed z as ``_slide_phase`` reads it
+    (-1 * z[p], bit for bit)."""
+    __slots__ = ("z",)
+
+    def __init__(self, z: np.ndarray):
+        self.z = z
+
+    def __getitem__(self, p):
+        return -self.z[p]
 
 
 # Seeds per seed_eval launch of the window scan: the walk evaluates the
@@ -632,7 +708,9 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
     seed the walk needs onward and in the outer class it needs there, and
     the host outer walk consumes the outcomes in the reference's order
     (jump/suppression after each emitted call), keeping the rare
-    slide/trim phases sequential."""
+    slide/trim phases sequential. Its host state is ``seed_inputs``' 5
+    bytes a base, the candidates (4 bytes each) and a ``WALK_BLOCK``
+    window of the candidate index."""
     from grom_tpu_torch.call.cnv import CnvCall, _slide_phase, _trim_phase
     from grom_tpu_torch.utils.timing import phase
 
@@ -640,23 +718,21 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
     maxw = cfg.max_rd_window_len
     max_low = cfg.max_rd_low_acgt_or_windows
     out = []
-    defc, gcls_idx, sok0, sok1, svals, lowa, si = seed_inputs(
-        depth, mq, gc, low_acgt, stdev_list, thr, win_std, cfg, L, side,
-        device)
+    flags, gcls_idx = seed_inputs(depth, mq, gc, low_acgt, thr, cfg, L, side)
+    si = device_seed_inputs(flags, stdev_list, win_std, side, device)
     batch = SEED_BATCH[torch.device(device).type]
+    fl, gi = memoryview(flags), memoryview(gcls_idx)
+    lowa = _Bit(fl, F_LOWA)
+    sok0, sok1 = _Bit(fl, F_SOK0), _Bit(fl, F_SOK1)
+    svals = stdev_list if side > 0 else _Negated(stdev_list)
 
     for (bs, be0) in blocks:
         be = be0 - minw
         if be <= bs:
             continue
-        cand = np.flatnonzero((sok0 | sok1)[bs:be]) + bs
+        cand = walk_candidates(flags, bs, be)
         if not len(cand):
             continue
-        # candidate index by position - bs: 4 bytes a position and no
-        # Python object a candidate
-        pos_to_i = np.full(be - bs, -1, np.int32)
-        pos_to_i[cand - bs] = np.arange(len(cand), dtype=np.int32)
-        pos_to_i = memoryview(pos_to_i)
         batches = {0: (0, 0, None), 1: (0, 0, None)}
 
         def evaluate(i0, cls):
@@ -664,7 +740,8 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
             ``cls``."""
             i1 = min(i0 + batch, len(cand))
             with phase("cnv.seed_eval_dev"):
-                seeds = torch.from_numpy(cand[i0:i1]).to(device)
+                seeds = torch.from_numpy(cand[i0:i1].astype(np.int64)).to(
+                    device)
                 cls_t = torch.full((i1 - i0,), cls, dtype=torch.int8,
                                    device=device)
                 # one copy back per launch
@@ -675,15 +752,18 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
         # host outer walk (reference order; src/GROM.c:19358-19380)
         mq_index = 0
         pos = bs
+        w0 = w1 = bs    # the candidate index covers [w0, w1)
         while pos < be:
-            dc = defc[pos]
-            if dc >= 0:
-                mq_index = int(dc)
-            sok_cls = sok0 if mq_index == 0 else sok1
-            if not sok_cls[pos]:
+            f = fl[pos]
+            if f & F_DEF:
+                mq_index = 1 if f & F_CLS1 else 0
+            if not f & (F_SOK1 if mq_index else F_SOK0):
                 pos += 1
                 continue
-            i = pos_to_i[pos - bs]
+            if pos >= w1:
+                w0, w1 = pos, min(pos + WALK_BLOCK, be)
+                pos_to_i = _walk_index(cand, w0, w1)
+            i = pos_to_i[pos - w0]
             b_lo, b_hi, res = batches[mq_index]
             if not b_lo <= i < b_hi:
                 b_lo, b_hi, res = batches[mq_index] = evaluate(i, mq_index)
@@ -696,8 +776,9 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
                 continue
             stop_base = f1 < n or n < maxw
             lp = pos + f1 if f1 < n else pos + n - 1
-            q = gcls_idx[lp]
-            mqi = int(defc[q]) if q >= pos else mq_index
+            q = gi[lp]
+            # the class of the last gated-definite base in [pos, lp]
+            mqi = (1 if fl[q] & F_CLS1 else 0) if q >= pos else mq_index
             last_good = c_end if begin else 0
             if not stop_base and begin:
                 c_end, c_sd, last_good, mqi = _slide_phase(

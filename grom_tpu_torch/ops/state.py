@@ -9,7 +9,8 @@ the same values) go through these converters:
   packed into one buffer as ``tile_inputs`` packs a tile;
 * ``cnv_tables``: the count tables of the CNV bin rows, ``ave``, ``std``
   and the pval2sd table, checked for the order and range they need, in one
-  upload; ``z_inputs``: the z stage's per-base inputs, in one upload;
+  upload; ``z_inputs``: the z stage's per-base inputs, in blocks through
+  one staging buffer;
 * ``span_inputs``: a run's M-spans and reads as ``rd_scatter`` inputs, in
   one upload;
 * ``cell_deltas``: one mesh cell's slice of the rd endpoint deltas
@@ -23,6 +24,7 @@ the same values) go through these converters:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import numpy as np
@@ -86,14 +88,52 @@ def cnv_tables(arrs, ave: np.ndarray, std: np.ndarray, pv_p: np.ndarray,
         device))
 
 
+# positions a block of the z stage's upload carries: its pinned staging
+# buffer is 8 bytes a position (32 MiB), whatever the chromosome's length
+Z_UPLOAD_BLOCK = 1 << 22
+
+
 def z_inputs(depth, mq, gc, low_acgt, lo: int, hi: int, device) -> ZInputs:
-    """The z stage's per-base inputs over [lo, hi) on ``device``, in one
-    upload (``pack_arrays``: pinned and not waited for on a CUDA
-    device)."""
-    sl = slice(lo, hi)
-    return ZInputs(**pack_arrays(dict(
-        depth=depth[sl], mq=mq[sl], gc=gc[sl], low_acgt=low_acgt[sl]),
-        ZIN_DTYPES, device))
+    """The z stage's per-base inputs over [lo, hi) on ``device``: views of
+    one buffer laid out as ``pack_arrays`` lays it out, filled
+    ``Z_UPLOAD_BLOCK`` positions at a time through one staging buffer
+    (pinned on a CUDA device), so no host buffer of the whole range is
+    made. The staging buffer is refilled once the copies out of it have
+    finished; the last block's copies are not waited for."""
+    dev = torch.device(device)
+    n = hi - lo
+    arrays = dict(depth=depth, mq=mq, gc=gc, low_acgt=low_acgt)
+    offs, total = {}, 0
+    for name, dt in ZIN_DTYPES.items():
+        offs[name] = total
+        total += -(-n * dt.itemsize // 16) * 16
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=dev)
+    views = {name: buf[off:off + n * ZIN_DTYPES[name].itemsize].view(
+        ZIN_DTYPES[name]) for name, off in offs.items()}
+    B = max(min(Z_UPLOAD_BLOCK, n), 1)
+    cuda = dev.type == "cuda"
+    stage = torch.empty(B * sum(dt.itemsize for dt in ZIN_DTYPES.values()),
+                        dtype=torch.uint8, pin_memory=cuda)
+    sb = stage.numpy()
+    copied = None
+    with torch.cuda.device(dev) if cuda else contextlib.nullcontext():
+        for b0 in range(0, n, B):
+            k = min(B, n - b0)
+            if copied is not None:
+                copied.synchronize()
+            off = 0
+            for name, dt in ZIN_DTYPES.items():
+                np_dt = np.dtype(str(dt).replace("torch.", ""))
+                sb[off:off + k * dt.itemsize].view(np_dt)[:] = \
+                    arrays[name][lo + b0:lo + b0 + k]
+                views[name][b0:b0 + k].copy_(
+                    stage[off:off + k * dt.itemsize].view(dt),
+                    non_blocking=True)
+                off += B * dt.itemsize
+            if cuda:
+                copied = torch.cuda.Event()
+                copied.record()
+    return ZInputs(**views)
 
 
 def span_inputs(batch, eligible: np.ndarray, device) -> Spans:

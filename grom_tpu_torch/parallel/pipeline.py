@@ -235,7 +235,7 @@ class MeshAccumulator:
             part = chrom[lo:hi]
             up = np.where(part >= 97, part - 32, part).astype(np.uint8)
             prep = dict(
-                sindex=SpanIndex(batch), reads=reads,
+                sindex=SpanIndex(batch, lo, hi), reads=reads,
                 elig_u8=eligible.astype(np.uint8), up=up,
                 is_n=up == ord("N"), gate_u8=(gate > 0).astype(np.uint8),
                 lo=lo, gate_base=gate_base,

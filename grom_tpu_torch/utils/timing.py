@@ -33,22 +33,20 @@ def _thread_times() -> Tuple[float, float, int]:
 
 
 def _pool_acquired() -> int:
-    """Cold slab bytes acquired so far by the numpy slab pool (0 if absent)."""
-    try:
-        from grom_tpu_torch import _hugealloc
-        return _hugealloc.stats()["acquired"]
-    except Exception:
-        return 0
+    """Cold slab bytes acquired so far: always 0, the port has no slab
+    pool."""
+    return 0
 
 
 def _pool_live_max() -> int:
-    """Peak live slab bytes so far (0 if absent). Sampled at phase ends; the
-    first phase whose end observes a new global peak is where it happened."""
-    try:
-        from grom_tpu_torch import _hugealloc
-        return _hugealloc.stats()["live_max"]
-    except Exception:
-        return 0
+    """Peak resident host bytes of the process so far (utils/peakmem.py:
+    VmHWM, or the sampler's peak since ``peakmem.start``; 0 if neither is
+    read), the port's counterpart of the slab pool's live peak. Sampled at
+    phase ends; the first phase whose end observes a new global peak is
+    where it happened."""
+    from grom_tpu_torch.utils import peakmem
+    kib, _ = peakmem.host_peak()
+    return (kib or 0) << 10
 
 
 def timing_enable(on: bool = True) -> None:

@@ -3,10 +3,9 @@ imports of the port.
 
 * Every import of a ``grom_tpu_torch`` module in the port resolves to a
   module of the port, or to a name one of its modules defines (an AST
-  scan, one case per file). The one deliberate dead import is named
-  below: ``utils/timing.py``'s probes of grom_tpu's slab allocator
-  (``_hugealloc``), which the port does not carry; the probes' ``except``
-  reports 0.
+  scan, one case per file). None is dead: ``utils/timing.py``'s slab
+  pool probes, which imported grom_tpu's slab allocator (``_hugealloc``),
+  read the peak host RSS instead.
 * With the port's native library built, ``_earlyingest.start`` then
   ``take`` on ds200k gives the whole file inflated; without it, no hit and
   nothing is built.
@@ -32,10 +31,6 @@ DATA = os.path.join(REPO, "tests", "data")
 PKG = "grom_tpu_torch"
 FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, PKG, "**", "*.py"), recursive=True))
-# (file, line, module): imports of the port that resolve to nothing, on
-# purpose
-DEAD = {("grom_tpu_torch/utils/timing.py", 38, "grom_tpu_torch._hugealloc"),
-        ("grom_tpu_torch/utils/timing.py", 48, "grom_tpu_torch._hugealloc")}
 
 torch.set_num_threads(1)
 
@@ -114,8 +109,7 @@ def _unresolved(path: str):
 
 @pytest.mark.parametrize("path", FILES)
 def test_port_imports_resolve(path):
-    bad = {(path, line, mod) for line, mod in _unresolved(path)}
-    assert bad == {d for d in DEAD if d[0] == path}
+    assert set(_unresolved(path)) == set()
 
 
 def test_import_scan_finds_a_missing_module(tmp_path, monkeypatch):

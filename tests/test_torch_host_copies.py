@@ -22,7 +22,7 @@ VERBATIM = [
     "stats/binom.py", "stats/normal.py",
     "ingest/bgzf.py", "ingest/bai.py", "ingest/bam.py", "ingest/batches.py",
     "ingest/fasta.py", "ingest/insert_size.py",
-    "utils/timing.py", "utils/bufpool.py",
+    "utils/bufpool.py",
     "vcfio/writer.py", "vcfio/tabular.py",
     "call/evidence.py", "call/scan.py", "call/snv.py", "call/sv_screen.py",
     "call/deposits.py", "call/indel.py", "call/sv.py", "call/ctx.py",
@@ -46,9 +46,13 @@ MERGED = {
     "native.py": ("native/__init__.py", {"DepOut", "_bind", "_c_long_p",
                                          "_u8_p"}),
     "call/cnv.py": ("call/cnv.py", None),
+    "utils/timing.py": ("utils/timing.py", None),
 }
-# the definitions of call/cnv.py that hold the port's device branch
-CNV_OWN = {"detect_del_dup", "call_cnv"}
+# the port's own definitions of the modules merged with None: call/cnv.py's
+# device branch, and the slab pool probes of utils/timing.py, which read
+# the peak host RSS (utils/peakmem.py) instead
+OWN = {"call/cnv.py": {"detect_del_dup", "call_cnv"},
+       "utils/timing.py": {"_pool_acquired", "_pool_live_max"}}
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)grom_tpu\b", re.M)
 
@@ -90,12 +94,36 @@ def test_merged_module_keeps_copied_definitions(path):
     ref = _defs(port_form(_read("grom_tpu", ref_path)))
     got = _defs(_read("grom_tpu_torch", path))
     if names is None:
-        names = set(ref) - CNV_OWN
-        assert CNV_OWN <= set(got)
+        names = set(ref) - OWN[path]
+        assert OWN[path] <= set(got)
     assert names
     for name in sorted(names):
         assert name in got, "%s: %s is missing" % (path, name)
         assert got[name] == ref[name], "%s: %s drifted" % (path, name)
+
+
+def _without(src: str, names) -> str:
+    """``src`` with the source of each top-level definition in ``names``
+    cut out."""
+    defs = _defs(src)
+    for name in names:
+        src = src.replace(defs[name], "")
+    return src
+
+
+def test_timing_differs_only_in_its_probes():
+    """utils/timing.py is grom_tpu's, character for character, outside the
+    two slab pool probes; and the port's live-max probe reads the peak
+    host RSS."""
+    from grom_tpu_torch.utils import peakmem, timing
+    own = OWN["utils/timing.py"]
+    ref = _read("grom_tpu", "utils", "timing.py")
+    got = _read("grom_tpu_torch", "utils", "timing.py")
+    assert _without(got, own) == _without(port_form(ref), own)
+    assert timing._pool_acquired() == 0
+    kib, _ = peakmem.host_peak()
+    if kib is not None:
+        assert timing._pool_live_max() >= kib << 10
 
 
 def _every_flag():

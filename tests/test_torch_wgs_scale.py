@@ -13,8 +13,10 @@ test_wgs_scale.py for grom_tpu_torch.
   the driver's ``launches`` and ``peak_memory`` lines under
   GROM_TPU_TIMING=1, and the ``-P`` job reports.
 * The real-size test (``slow``, ``cuda``, and GROM_TPU_RUN_WGS=1, as
-  grom_tpu's): tools/torch_scale.py's host, torch and torch_4m1m runs on
-  the 250 Mb chromosome, byte-identical.
+  grom_tpu's): tools/torch_scale.py's host, torch, mesh, torch_4m1m and
+  torch_P8 runs on the 250 Mb chromosome, byte-identical, each device
+  run's peak host RSS (the ``-P 8`` worker's) at or below the host run's:
+  the counterpart of grom_tpu's memory gate.
 """
 
 import json
@@ -115,19 +117,11 @@ def test_rd_window_matches_rd_lists(chunk):
     assert got[1].max() > 0 and got[0].sum() > got[1].sum()
 
 
-@pytest.mark.parametrize("side", [1, -1])
-@pytest.mark.parametrize("block", [1 << 12, 99_991, 1 << 24])
-def test_seed_inputs_in_blocks(side, block, monkeypatch):
-    """``cnv_device.seed_inputs`` built block by block equals the whole-array
-    formulation it replaces (numpy below), gated stretches at the start
-    (gcls_idx -1) included."""
+def _walk_inputs(L, seed=8):
+    """Seeded per-base inputs of the window walk over L bases, with gated
+    stretches at the start (no gated-definite base before 7,000)."""
     import numpy as np
-
-    from grom_tpu_torch.config import GromConfig
-    from grom_tpu_torch.ops import cnv_device
-    cfg = GromConfig(bam="", ref_fasta="", out_vcf="")
-    L = 300_001
-    rng = np.random.default_rng(8)
+    rng = np.random.default_rng(seed)
     depth = rng.integers(0, 60, L).astype(np.int32)
     depth[:5000] = 0
     mq = rng.integers(0, 60, L).astype(np.int16)
@@ -137,10 +131,28 @@ def test_seed_inputs_in_blocks(side, block, monkeypatch):
     low_acgt[:7000] = 1
     stdev = rng.standard_normal(L)
     thr = rng.random((2, 101)) * 60
+    return depth, mq, gc, low_acgt, stdev, thr
+
+
+@pytest.mark.parametrize("side", [1, -1])
+@pytest.mark.parametrize("block", [1 << 12, 99_991, 1 << 24])
+def test_seed_inputs_in_blocks(side, block, monkeypatch):
+    """``cnv_device.seed_inputs`` built block by block equals the whole-array
+    formulation (numpy below), gated stretches at the start (gcls_idx -1)
+    included: ``pack_flags``' bits, the base's own class bits and the int32
+    gcls_idx; ``device_seed_inputs`` carries the same flags and the
+    side-signed z."""
+    import numpy as np
+
+    from grom_tpu_torch.config import GromConfig
+    from grom_tpu_torch.ops import cnv_device
+    cfg = GromConfig(bam="", ref_fasta="", out_vcf="")
+    L = 300_001
+    depth, mq, gc, low_acgt, stdev, thr = _walk_inputs(L)
     win_std = np.linspace(1.0, 2.0, 10_001)
     monkeypatch.setattr(cnv_device, "SEED_INPUT_BLOCK", block)
-    got = cnv_device.seed_inputs(depth, mq, gc, low_acgt, stdev, thr,
-                                 win_std, cfg, L, side, "cpu")
+    flags, gidx = cnv_device.seed_inputs(depth, mq, gc, low_acgt, thr, cfg,
+                                         L, side)
     defc = np.where(mq >= cfg.min_mapq, np.int8(0),
                     np.where(depth > 0, np.int8(1), np.int8(-1)))
     idx = np.arange(L, dtype=np.int64)
@@ -149,13 +161,73 @@ def test_seed_inputs_in_blocks(side, block, monkeypatch):
     gcls_val = defc[np.maximum(gcls_idx, 0)]
     op = np.less_equal if side > 0 else np.greater_equal
     sok0, sok1 = op(depth, thr[0, gc]), op(depth, thr[1, gc])
-    want = (defc, gcls_idx, sok0, sok1, side * stdev, lowa)
-    for a, b in zip(got[:6], want):
-        assert a.dtype == b.dtype and np.array_equal(a, b)
-    flags = cnv_device.pack_flags(lowa, sok0, sok1, gcls_idx, gcls_val)
-    assert np.array_equal(got[6].flags.numpy(), flags)
+    want = (cnv_device.pack_flags(lowa, sok0, sok1, gcls_idx, gcls_val)
+            | np.where(defc >= 0, np.uint8(cnv_device.F_DEF), np.uint8(0))
+            | np.where(defc == 1, np.uint8(cnv_device.F_CLS1), np.uint8(0)))
+    assert flags.dtype == np.uint8 and np.array_equal(flags, want)
+    assert gidx.dtype == np.int32 and np.array_equal(gidx, gcls_idx)
     assert (gcls_idx[:7000] == -1).all() and (flags & cnv_device.F_GDEF).any()
-    assert np.array_equal(got[6].svals.numpy(), side * stdev)
+    si = cnv_device.device_seed_inputs(flags, stdev, win_std, side, "cpu")
+    assert np.array_equal(si.flags.numpy(), want)
+    assert np.array_equal(si.svals.numpy().view(np.uint64),
+                          (side * stdev).view(np.uint64))
+    assert np.array_equal(si.win_std.numpy(), win_std)
+
+
+def test_walk_host_state_bytes_a_base():
+    """The window walk's host state on a seeded 1 Mb case, each side (the
+    second side's made after the first's is dropped): what ``seed_inputs``
+    returns is at most 6 bytes a base; the candidates are int32; the
+    side-signed z is made on the device, and the stage's z list is left
+    as it was."""
+    import numpy as np
+
+    from grom_tpu_torch.config import GromConfig
+    from grom_tpu_torch.ops import cnv_device
+    cfg = GromConfig(bam="", ref_fasta="", out_vcf="")
+    L = 1_000_000
+    depth, mq, gc, low_acgt, stdev, thr = _walk_inputs(L, seed=9)
+    z = stdev.copy()
+    for side in (1, -1):
+        state = cnv_device.seed_inputs(depth, mq, gc, low_acgt, thr, cfg, L,
+                                       side)
+        assert sum(a.nbytes for a in state) <= 6 * L
+        cand = cnv_device.walk_candidates(state[0], 0, L)
+        assert cand.dtype == np.int32 and 0 < len(cand) < L
+        si = cnv_device.device_seed_inputs(state[0], stdev,
+                                           np.ones(11), side, "cpu")
+        assert si.svals.numpy()[123] == side * stdev[123]
+        del state, cand, si
+    assert np.array_equal(stdev, z)
+
+
+@pytest.mark.parametrize("block", [1 << 12, 65_537, 1 << 22])
+def test_z_upload_in_blocks(block, monkeypatch):
+    """``state.z_inputs`` through its staging buffer, ``Z_UPLOAD_BLOCK``
+    positions at a time, equals the one-shot upload it replaces
+    (``pack_arrays`` of the whole range) bitwise, field by field and in
+    the buffer's layout; 65,537 divides neither the range nor a power of
+    two, and 2^22 is more than the range."""
+    import numpy as np
+
+    from grom_tpu_torch.ops import state
+    from grom_tpu_torch.ops.accumulate import pack_arrays
+    from grom_tpu_torch.ops.cnv_device import ZIN_DTYPES
+    L = 300_001
+    depth, mq, gc, low_acgt, _, _ = _walk_inputs(L, seed=10)
+    lo, hi = 1_234, L - 77
+    monkeypatch.setattr(state, "Z_UPLOAD_BLOCK", block)
+    got = state.z_inputs(depth, mq, gc, low_acgt, lo, hi, "cpu")
+    want = pack_arrays(dict(depth=depth[lo:hi], mq=mq[lo:hi], gc=gc[lo:hi],
+                            low_acgt=low_acgt[lo:hi]), ZIN_DTYPES, "cpu")
+    base = got.depth.untyped_storage().data_ptr()
+    for name, dt in ZIN_DTYPES.items():
+        g, w = getattr(got, name), want[name]
+        assert g.dtype == w.dtype == dt and g.shape == (hi - lo,)
+        assert g.numpy().tobytes() == w.numpy().tobytes()
+        assert g.untyped_storage().data_ptr() == base
+        assert (g.data_ptr() - base
+                == w.data_ptr() - w.untyped_storage().data_ptr())
 
 
 # --------------------------------------------------------------------------
@@ -251,6 +323,56 @@ def test_driver_prints_peak_memory_and_launches(tmp_path):
     assert r.returncode == 0 and "peak_memory" not in r.stderr
 
 
+def _livemax_mib(stderr):
+    """The ``livemax`` column (MiB) of the timing table, by phase."""
+    out, on = {}, False
+    for ln in stderr.splitlines():
+        if ln.startswith("== grom_tpu timing =="):
+            on = True
+            continue
+        t = ln.split()
+        if on and len(t) == 8 and t[1].endswith("s") and t[6].endswith("M"):
+            out[t[0]] = int(t[6][:-1])
+    return out
+
+
+def test_livemax_reads_peak_rss_per_phase(tmp_path):
+    """A GROM_TPU_TIMING=1 run of the torch engine (plain kernels) on
+    ds200k in a fresh process: every phase's ``livemax`` is the peak RSS at
+    its end, non-zero and at most the run's peak; the largest equals the
+    ``peak_memory`` line's host peak up to what the process grew after its
+    last phase ended; the line's ``phase_rss_kib`` is the same reading in
+    KiB."""
+    d = os.path.join(DATA, "ds200k")
+    code = textwrap.dedent("""
+        import sys
+        sys.path.insert(0, %r)
+        import torch
+        torch.set_num_threads(1)
+        from grom_tpu_torch.cli import parse_args
+        from grom_tpu_torch.driver import run
+        run(parse_args(sys.argv[1:]), engine="torch", device="cpu")
+    """ % REPO)
+    r = _cli(["-c", code, "-i", os.path.join(d, "ds.bam"), "-r",
+              os.path.join(d, "ds.fa"), "-o", str(tmp_path / "o.vcf")],
+             {"GROM_TPU_TIMING": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    (mem,) = _stats(r.stderr)["peak_memory"]
+    livemax = _livemax_mib(r.stderr)
+    phases = mem["phase_rss_kib"]
+    assert set(livemax) == set(phases) >= {"scan.device", "call.cnv",
+                                           "cnv.winscan_dev"}
+    peak = mem["rss_peak_kib"]
+    # the kernel sums its RSS counters per CPU, so two readings of VmHWM
+    # may be out of order by up to a batch of pages per CPU
+    slack = 32 << 10
+    assert min(livemax.values()) > 0
+    for k, v in phases.items():
+        assert 0 < v <= peak + slack and livemax[k] == v >> 10
+    # after the last phase end only the table and these lines are printed
+    assert abs(peak - max(phases.values())) <= slack, (peak, phases)
+
+
 def test_parallel_reports_peak_memory(tmp_path):
     d = os.path.join(DATA, "ctx2x60k")
     r = _cli(["-m", "grom_tpu_torch", "-i", os.path.join(d, "ds.bam"),
@@ -268,6 +390,9 @@ def test_parallel_reports_peak_memory(tmp_path):
         assert j["max_memory_reserved"] is None
         assert j["memory_share"] is None
         assert j["phases"]["call.cnv"] > 0
+        assert set(j["phase_rss_kib"]) == set(j["phases"])
+        assert 0 < j["phase_rss_kib"]["call.cnv"] <= j["max_rss_kib"] + (
+            32 << 10)
     assert st["peak_memory"][0]["rss_peak_kib"] > 0
     assert st["launches"][0]["tile_accumulate"] == 0
 
@@ -279,7 +404,7 @@ def test_parallel_reports_peak_memory(tmp_path):
 @pytest.mark.slow
 @pytest.mark.cuda
 @pytest.mark.skipif(os.environ.get("GROM_TPU_RUN_WGS") != "1",
-                    reason="~30 min + ~7 GB disk; set GROM_TPU_RUN_WGS=1")
+                    reason="~45 min + ~7 GB disk; set GROM_TPU_RUN_WGS=1")
 def test_torch_250mb_matches_host():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -288,8 +413,9 @@ def test_torch_250mb_matches_host():
     fa, bam = torch_scale.dataset(torch_scale.DATASET["length"])
     ref = torch_scale.run_one("host", fa, bam)
     assert ref["rc"] == 0, ref.get("stderr_tail")
-    for name in ("torch", "torch_4m1m"):
+    for name in ("torch", "mesh", "torch_4m1m", "torch_P8"):
         rec = torch_scale.run_one(name, fa, bam)
         assert rec["rc"] == 0, rec.get("stderr_tail")
         assert torch_scale.check_run(rec, ref) == []
         assert rec["rows"] == ref["rows"]
+        assert 0 < rec["rss_peak_kib"] <= ref["rss_peak_kib"]

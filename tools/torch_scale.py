@@ -1,7 +1,7 @@
 """The port's main path at a human chromosome's size on one CUDA card.
 
     python3 tools/torch_scale.py [--runs host,torch,mesh,torch_4m1m,torch_P8]
-                                 [--length 250000000]
+                                 [--length 250000000] [--repos DIR,DIR]
 
 Generates grom_tpu's 250 Mb WGS-scale chromosome (tests/test_wgs_scale.py
 ``test_250mb_bounded_memory``: 30x, seed 11, SNP rate 1e-3, a hotspot at
@@ -27,12 +27,21 @@ must launch every kernel of its engine's path. When a run ends, one JSON
 line: its wall, its timed phases, its kernel launches, its
 ``peak_memory`` (the driver's line: peak host RSS with its label,
 ``vmhwm`` or ``sampled``, and the card's peak allocated and reserved
-bytes; for ``-P`` also each worker's), its rows by type and
-``identical``. A failed or differing run does not stop the runs after
-it; the script then exits 1. It never falls back to the host engine or
-to the plain versions of the kernels. ``--length`` cuts the chromosome
-(planted features past the cut are dropped), never below 135,000,000
-bases: below 134,217,728 the default ingest chunk is no longer 16 Mi.
+bytes; for ``-P`` also each worker's), the peak host RSS at each timed
+phase's last end (``phase_rss_kib``, the timing table's ``livemax``; a
+``-P`` run's are its worker's), its rows by type and ``identical``. A
+device run whose peak RSS (a ``-P`` run's: its largest worker's) is above
+the host run's is a problem, as is an output that differs. A failed or
+differing run does not stop the runs after it; the script then exits 1.
+It never falls back to the host engine or to the plain versions of the
+kernels. ``--length`` cuts the chromosome (planted features past the cut
+are dropped), never below 135,000,000 bases: below 134,217,728 the
+default ingest chunk is no longer 16 Mi.
+
+``--repos A,B`` runs each device run from each checkout in turn (A, B,
+A, B, ...), against one host run from the last: to hold a change against
+its parent in one call, unpack the parent with ``git archive`` into a
+gitignored directory (``proof/parent``) and pass ``proof/parent,.``.
 """
 
 from __future__ import annotations
@@ -129,7 +138,8 @@ def row_types(vcf: str) -> dict:
 def parse_stderr(err: str) -> dict:
     """The timed phases (wall seconds), and the ``launches``,
     ``peak_memory`` and ``parallel_job`` JSON lines of a run's stderr."""
-    out = {"phases": {}, "launches": None, "peak_memory": None, "jobs": []}
+    out = {"phases": {}, "launches": None, "peak_memory": None, "jobs": [],
+           "phase_rss_kib": {}}
     for ln in err.splitlines():
         m = re.match(r"^(\S+)\s+([\d.]+)s\s", ln)
         if m and m.group(1) in PHASES:
@@ -140,22 +150,38 @@ def parse_stderr(err: str) -> dict:
             out["peak_memory"] = json.loads(ln.split(" ", 1)[1])
         elif ln.startswith("parallel_job {"):
             out["jobs"].append(json.loads(ln.split(" ", 1)[1]))
+    rss = (out["peak_memory"] or {}).get("phase_rss_kib") or {}
     if out["jobs"]:
         # a -P run's phases are its workers'
+        rss = {}
         for job in out["jobs"]:
             for k, v in job.get("phases", {}).items():
                 if k in PHASES:
                     out["phases"][k] = out["phases"].get(k, 0.0) + v
+            for k, v in (job.get("phase_rss_kib") or {}).items():
+                rss[k] = max(rss.get(k, 0), v)
+    # in the order the peak grew
+    out["phase_rss_kib"] = dict(sorted(rss.items(), key=lambda kv: kv[1]))
     return out
 
 
-def run_one(name: str, fa: str, bam: str) -> dict:
-    """One run in a fresh process; returns its record (``rc`` non-zero and
-    the end of its stderr when it failed)."""
+def rss_peak_kib(rec: dict):
+    """A run's peak host RSS in KiB: its process's, or for a ``-P`` run
+    its largest worker's; None when it printed none."""
+    if rec["jobs"]:
+        return max((j["max_rss_kib"] or 0) for j in rec["jobs"]) or None
+    return (rec["peak_memory"] or {}).get("rss_peak_kib")
+
+
+def run_one(name: str, fa: str, bam: str, repo: str = REPO,
+            tag: str = "") -> dict:
+    """One run of the checkout ``repo`` in a fresh process; returns its
+    record (``rc`` non-zero and the end of its stderr when it failed). Its
+    files are named ``<tag><name>``."""
     engine, env_extra, flags = RUNS[name]
-    vcf = os.path.join(OUT, "%s.vcf" % name)
+    vcf = os.path.join(OUT, "%s%s.vcf" % (tag, name))
     env = dict(os.environ, GROM_TPU_TIMING="1", GROM_TPU_TORCH_ENGINE=engine,
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
                                                             ""))
     for k in ("GROM_TPU_CHUNK_BASES", "GROM_TPU_DETECT_BASES"):
         env.pop(k, None)
@@ -163,11 +189,12 @@ def run_one(name: str, fa: str, bam: str) -> dict:
     if engine != "host":
         visible = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
         env["CUDA_VISIBLE_DEVICES"] = visible or "0"
-    rec = {"run": name, "engine": engine, "env": env_extra, "flags": flags}
+    rec = {"run": name, "repo": os.path.relpath(repo, REPO),
+           "engine": engine, "env": env_extra, "flags": flags}
     t0 = time.perf_counter()
     try:
         r = subprocess.run([sys.executable, "-m", "grom_tpu_torch", "-i", bam,
-                            "-r", fa, "-o", vcf, *flags], cwd=REPO, env=env,
+                            "-r", fa, "-o", vcf, *flags], cwd=repo, env=env,
                            capture_output=True, text=True,
                            timeout=RUN_TIMEOUT_S)
         rc, err = r.returncode, r.stderr
@@ -177,9 +204,10 @@ def run_one(name: str, fa: str, bam: str) -> dict:
             exc.stderr or "")
     rec["wall_s"] = time.perf_counter() - t0
     rec["rc"] = rc
-    with open(os.path.join(OUT, "%s.stderr" % name), "w") as f:
+    with open(os.path.join(OUT, "%s%s.stderr" % (tag, name)), "w") as f:
         f.write(err)
     rec.update(parse_stderr(err))
+    rec["rss_peak_kib"] = rss_peak_kib(rec)
     if rc != 0:
         rec["stderr_tail"] = err[-3000:]
         return rec
@@ -191,7 +219,7 @@ def run_one(name: str, fa: str, bam: str) -> dict:
 def check_run(rec: dict, ref: dict) -> list:
     """What is wrong with a finished device run: a file that differs from
     the host run's, a kernel of its path never launched, a missing
-    reading."""
+    reading, a peak host RSS above the host run's."""
     bad = []
     for suf in ("", ".ctx"):
         a = rec["vcf"][:-4] + suf + ".vcf"
@@ -210,6 +238,11 @@ def check_run(rec: dict, ref: dict) -> list:
             bad.append("a -P job ran off the card")
     if not card or not card.get("max_allocated"):
         bad.append("no peak card memory reading")
+    if rec["rss_peak_kib"] is None or ref["rss_peak_kib"] is None:
+        bad.append("no peak host RSS reading")
+    elif rec["rss_peak_kib"] > ref["rss_peak_kib"]:
+        bad.append("peak host RSS %d KiB above the host run's %d KiB"
+                   % (rec["rss_peak_kib"], ref["rss_peak_kib"]))
     return bad
 
 
@@ -225,7 +258,15 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", default=",".join(RUNS),
                     help="comma-separated subset of %s" % ",".join(RUNS))
     ap.add_argument("--length", type=int, default=DATASET["length"])
+    ap.add_argument("--repos", default=".",
+                    help="comma-separated checkouts, relative to the repo; "
+                         "the host run is the last one's")
     a = ap.parse_args(argv)
+    repos = [os.path.normpath(os.path.join(REPO, r))
+             for r in a.repos.split(",") if r]
+    for r in repos:
+        if not os.path.isdir(os.path.join(r, "grom_tpu_torch")):
+            ap.error("%s holds no grom_tpu_torch" % r)
     runs = [r for r in a.runs.split(",") if r]
     for r in runs:
         if r not in RUNS:
@@ -246,9 +287,12 @@ def main(argv=None) -> int:
         smi = None
     os.makedirs(OUT, exist_ok=True)
     fa, bam = dataset(a.length)
+    tags = {r: "" if len(repos) == 1 else "%s." % (
+        "this" if r == REPO else os.path.basename(r)) for r in repos}
+    todo = [("host", repos[-1])] + [(n, r) for n in runs[1:] for r in repos]
     records, ok, ref = [], True, None
-    for name in runs:
-        rec = run_one(name, fa, bam)
+    for name, repo in todo:
+        rec = run_one(name, fa, bam, repo, tags[repo])
         if rec["rc"] != 0:
             rec["problems"] = ["exited %d" % rec["rc"]]
         elif name == "host":
