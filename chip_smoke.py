@@ -66,7 +66,17 @@ non-zero without its result line:
    line (peak host RSS with its label, peak card memory) and, on the mesh
    engine, K5's largest run (spans and cells); then the peak host RSS at
    each timed phase's last end (the timing table's ``livemax``) of these
-   two runs and of phase 5's host run, in the order the peak grew.
+   two runs and of phase 5's host run, in the order the peak grew;
+9. grom_tpu's per-stage device policy on phase 5's 24 Mb dataset, each
+   run the CLI in a fresh process with GROM_TPU_TIMING=1: the torch and
+   the mesh engine with GROM_TPU_DEVICE_CNV=0 (the native C CNV stage on
+   the depth lists the engine built: none of the three CNV kernels may
+   launch), and the host engine with GROM_TPU_DEVICE_CNV=1 and
+   GROM_TPU_DEVICE_SV=1 (the CNV kernels and the SV scorer on the card,
+   the scan on the host: all four must launch, and neither the tile
+   kernel nor K5 nor K6); VCF and .ctx.vcf byte-identical to phase 5's
+   host output; each run's wall, ``call.cnv`` and its ``cnv.*`` phases,
+   launches and ``peak_memory`` line.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table (each kernel's time beside its bound: the larger of
@@ -176,6 +186,11 @@ SPLIT_FLAGS = ["-R", "1", "-X", "1000"]
 WIDE = {"GROM_TPU_CHUNK_BASES": str(16 << 20),
         "GROM_TPU_DETECT_BASES": str(4 << 20)}
 
+# phase 9: (engine, knobs) of each run of grom_tpu's per-stage policy
+POLICY = [("torch", {"GROM_TPU_DEVICE_CNV": "0"}),
+          ("mesh", {"GROM_TPU_DEVICE_CNV": "0"}),
+          ("host", {"GROM_TPU_DEVICE_CNV": "1", "GROM_TPU_DEVICE_SV": "1"})]
+CNV_PATH = ("zscores", "seed_eval", "null_model")
 
 # phase 5's host run (``run_child``), whose peaks phase 8 prints
 HOST_RUN: dict = {}
@@ -1388,8 +1403,9 @@ def phase_parallel() -> None:
 
 def run_child(argv, engine_name: str, env_extra: dict) -> dict:
     """One run of the port's CLI in a fresh process (``cli_child``) with
-    GROM_TPU_TIMING=1; returns its wall seconds and its ``launches``,
-    ``peak_memory`` and ``k5_largest`` stderr lines, parsed."""
+    GROM_TPU_TIMING=1; returns its wall seconds, its timed phases' wall
+    seconds (``phases``) and its ``launches``, ``peak_memory`` and
+    ``k5_largest`` stderr lines, parsed."""
     env = dict(os.environ, GROM_TPU_TORCH_ENGINE=engine_name,
                GROM_TPU_TIMING="1", **env_extra)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -1401,8 +1417,16 @@ def run_child(argv, engine_name: str, env_extra: dict) -> dict:
         raise RuntimeError("grom_tpu_torch %s (%s) exited %d:\n%s"
                            % (argv, engine_name, r.returncode,
                               r.stderr[-4000:]))
-    out = {"wall_s": time.perf_counter() - t0}
+    out = {"wall_s": time.perf_counter() - t0, "phases": {}}
+    in_table = False
     for ln in r.stderr.splitlines():
+        if ln.startswith("== grom_tpu timing =="):
+            in_table = True
+            continue
+        row = re.match(r"^(\S+)\s+([\d.]+)s\s", ln) if in_table else None
+        if row:
+            out["phases"][row.group(1)] = float(row.group(2))
+            continue
         key, _, rest = ln.partition(" ")
         if key in ("launches", "peak_memory", "k5_largest") and \
                 rest.startswith("{"):
@@ -1504,6 +1528,44 @@ def phase_wide_chunks() -> None:
                         "phase 5's host run (default geometry)", peaks[name])
 
 
+def phase_device_policy() -> None:
+    """Phase 5's chromosome under GROM_TPU_DEVICE_CNV / GROM_TPU_DEVICE_SV
+    in fresh processes, against phase 5's host output."""
+    say("== 9. grom_tpu's per-stage device policy: %d Mb at %gx"
+        % (BULK["length"] // 10**6, BULK["coverage"]))
+    args = bulk_args()
+    host_vcf = os.path.join(OUT, "bulk.host.vcf")
+    for name, knobs in POLICY:
+        label = "%s %s" % (name, " ".join("%s=%s" % kv
+                                          for kv in sorted(knobs.items())))
+        vcf = os.path.join(OUT, "bulk.policy.%s.vcf" % name)
+        res = run_child(args + ["-o", vcf], name, knobs)
+        same_files(vcf, host_vcf)
+        launches = res["launches"]
+        if name == "host":
+            need = CNV_PATH + ("sv_score",)
+            banned = ("tile_accumulate",) + MESH_ONLY
+        else:
+            need = ("tile_accumulate", "sv_score") + (
+                MESH_ONLY if name == "mesh" else ())
+            banned = CNV_PATH
+        missing = [k for k in need if launches.get(k, 0) <= 0]
+        extra = [k for k in banned if launches.get(k, 0) > 0]
+        if missing or extra:
+            raise AssertionError("%s: kernels not launched %s, launched "
+                                 "against the policy %s: %s"
+                                 % (label, missing, extra,
+                                    json.dumps(launches)))
+        ph = res["phases"]
+        say("%s: VCF and .ctx.vcf byte-identical to phase 5's host output; "
+            "%.2f s; call.cnv %.3f s (%s)"
+            % (label, res["wall_s"], ph.get("call.cnv", 0.0),
+               ", ".join("%s %.3f s" % kv for kv in sorted(ph.items())
+                         if kv[0].startswith("cnv."))))
+        say("%s: launches %s" % (label, json.dumps(launches)))
+        say("%s: peak_memory %s" % (label, json.dumps(res["peak_memory"])))
+
+
 def say_phase_peaks(label: str, mem: dict) -> None:
     """One line: the peak host RSS (GiB) at each timed phase's last end
     (``peak_memory``'s ``phase_rss_kib``), in the order the peak grew, and
@@ -1542,6 +1604,7 @@ def main() -> int:
     res.update(phase_real_size_mesh())
     phase_parallel()
     phase_wide_chunks()
+    phase_device_policy()
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax",
                                                               "grom_tpu")]
     if foreign:

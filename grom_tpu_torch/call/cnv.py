@@ -31,6 +31,10 @@ The port's copy of grom_tpu/call/cnv.py. Only the device branch of
 ``detect_del_dup`` differs: with ``engine="torch"`` or ``"mesh"`` the
 z-scores, the null window model and the per-seed window math run on the
 port's kernels (ops/cnv_device.py) on ``device``, held to the host's bits.
+GROM_TPU_DEVICE_CNV picks the branch as in grom_tpu: "1" runs it on any
+engine, the host engine included; "0" runs the native C / numpy stage on
+any engine; any other value keeps the default (the device branch on the
+device engines only).
 """
 
 from __future__ import annotations
@@ -684,7 +688,9 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
     # native fast path (native/grom_cnv.c): bit-identical C ports of the
     # z-score, null-model and window-scan stages below; the numpy code
     # remains the differential oracle (tests/test_native_cnv.py)
-    if engine in ("torch", "mesh"):
+    import os as _os
+    _dc = _os.environ.get("GROM_TPU_DEVICE_CNV", "")
+    if _dc == "1" or (_dc != "0" and engine in ("torch", "mesh")):
         # the port's kernels (ops/cnv_device.py, csrc/cnv.cu) on ``device``:
         # z-scores (mapq weight included), the null model and the per-seed
         # window math, bitwise equal to the native path below. The repeat
@@ -1532,8 +1538,8 @@ def call_cnv(chrom: np.ndarray, rd_hi: np.ndarray, rd_lo: np.ndarray,
     """Full CNV pipeline for one chromosome. rd_mq_sum is the raw per-base
     mapq sum (normalized to mean in here, mirroring src/GROM.c:16637).
     When -N is set, the fixed-window CN track rows land in gen1000_out.
-    With ``engine="torch"`` or ``"mesh"`` the CNV kernels run on
-    ``device``.
+    With ``engine="torch"`` or ``"mesh"`` (or GROM_TPU_DEVICE_CNV=1) the
+    CNV kernels run on ``device``.
 
     NOTE (-g 1 chrX ploidy): the reference INTENDS to halve ploidy for a
     male X (src/GROM.c:17024-17035) but the name it compares,

@@ -296,22 +296,26 @@ def run_parallel(cfg: GromConfig, engine: Optional[str] = None,
 
     ``engine`` defaults to ``resolve_engine()``, resolved here once, so
     ``auto`` without a card raises before any worker starts. The workers of
-    a device engine are dealt over ``devices`` (default: every visible CUDA
-    card; ``["cpu"]`` runs the plain versions of the kernels); the parent
-    builds the kernel libraries before it spawns and creates no CUDA
-    context. Returns each job's report (``_run_one_chromosome``), in header
+    a device engine, and of the host engine when GROM_TPU_DEVICE_CNV=1 or
+    GROM_TPU_DEVICE_SV=1 puts a stage on the device
+    (``driver.device_stages``), are dealt over ``devices`` (default: every
+    visible CUDA card; ``["cpu"]`` runs the plain versions of the
+    kernels); the parent builds the kernel libraries before it spawns and
+    creates no CUDA context. Otherwise the host engine's workers run on the
+    CPU. Returns each job's report (``_run_one_chromosome``), in header
     order, and adds the jobs' launches into ``_build.LAUNCHES``."""
     from grom_tpu_torch import _build, native
     from grom_tpu_torch.call.ctx import write_ctx_vcf
     from grom_tpu_torch.config import DerivedConfig
-    from grom_tpu_torch.driver import _ctx_path, check_device, resolve_engine
+    from grom_tpu_torch.driver import (_ctx_path, check_device, device_stages,
+                                       resolve_engine)
     from grom_tpu_torch.ingest import bam as bam_mod
     from grom_tpu_torch.ingest.insert_size import load_or_estimate
     from grom_tpu_torch.vcfio.writer import VcfWriter
 
     if engine is None:
         engine = resolve_engine()
-    if engine == "host":
+    if not device_stages(engine):
         devices = ["cpu"]
     else:
         if devices is None:

@@ -18,10 +18,17 @@ engine hooks differ, so fixes made in the reference carry over by diff:
 * ``engine="host"`` runs the native C / numpy engines of the port's own
   copies of grom_tpu's host modules (``call/``, ``ingest/``, native.py).
 
+grom_tpu's per-stage device policy holds on every engine:
+GROM_TPU_DEVICE_CNV=1 puts the CNV stage on ``device`` and =0 keeps it on
+the native C / numpy stage; GROM_TPU_DEVICE_SV=1 puts the SV scorer on
+``device`` and =0 keeps it on the host screen. Unset (or any other value),
+both stages are on the device on the device engines and on the host on the
+host engine (``device_stages``).
+
 The engine-free helpers of grom_tpu/driver.py are copied below as they
 are. There is no fallback from a kernel to its plain version or from a
-device engine to the host engine: a device engine asked for "cuda" without
-a card raises, and so does the default engine choice.
+device engine to the host engine: an engine that puts a stage on "cuda"
+without a card raises, and so does the default engine choice.
 """
 
 from __future__ import annotations
@@ -79,16 +86,29 @@ def resolve_engine() -> str:
     return e
 
 
+def device_stages(engine: str) -> bool:
+    """Whether a run of ``engine`` puts any stage on its device: always on
+    the device engines; on the host engine when GROM_TPU_DEVICE_CNV=1 or
+    GROM_TPU_DEVICE_SV=1 puts the CNV stage or the SV scorer there."""
+    return engine in ("torch", "mesh") or "1" in (
+        os.environ.get("GROM_TPU_DEVICE_CNV", ""),
+        os.environ.get("GROM_TPU_DEVICE_SV", ""))
+
+
 def check_device(engine: str, device) -> None:
-    """Raise when a device engine is asked for a CUDA device that is not
-    there (no fallback to the CPU or to the host engine)."""
-    if engine not in ("torch", "mesh"):
+    """Raise when an engine that puts a stage on its device
+    (``device_stages``) is asked for a CUDA device that is not there (no
+    fallback to the CPU or to the host stage)."""
+    if not device_stages(engine):
         return
     import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("engine %r on %s needs a CUDA device, and none "
-                           "is available" % (engine, device))
+        why = "" if engine in ("torch", "mesh") else (
+            " (GROM_TPU_DEVICE_CNV=1 or GROM_TPU_DEVICE_SV=1 puts a stage "
+            "there)")
+        raise RuntimeError("engine %r on %s needs a CUDA device%s, and none "
+                           "is available" % (engine, device, why))
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("engine %r runs on cuda (or cpu for tests), not %s"
                          % (engine, device))
@@ -243,7 +263,7 @@ def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     from grom_tpu_torch import _build
     from grom_tpu_torch.utils import peakmem
     devices = []
-    if engine in ("torch", "mesh"):
+    if device_stages(engine):
         devices = [device]
         if mesh is not None:
             devices = list(mesh.devices)

@@ -15,9 +15,11 @@ one pinned upload) and the scores as one packed uint8 buffer
 (``unpack_scores``: binom, hez, kind, accept). ``SvScorer`` is a callable
 for the ``scorer=`` seam of ``sv_screen.screen_window`` (numpy in, numpy
 out), with its tables uploaded once and one copy each way a window.
-``maybe_scorer`` is the engine policy: on for the ``torch`` and ``mesh``
-engines, off with ``GROM_TPU_DEVICE_SV=0``. A failed build or launch
-raises; nothing falls back to the host screen.
+``maybe_scorer`` is grom_tpu's engine policy: on for the ``torch`` and
+``mesh`` engines, on for every engine, the host engine included, with
+``GROM_TPU_DEVICE_SV=1``, off everywhere with ``GROM_TPU_DEVICE_SV=0``. The
+scorer is always f64, so grom_tpu's x64 gate has no counterpart here. A
+failed build or launch raises; nothing falls back to the host screen.
 """
 
 from __future__ import annotations
@@ -228,12 +230,15 @@ _CACHE: dict = {}
 
 def maybe_scorer(engine: Optional[str], mq_tab: np.ndarray,
                  hez_tab: np.ndarray, cfg, drv, device) -> Optional[SvScorer]:
-    """The scorer for the device engines ``torch`` and ``mesh`` (None for
-    the host engine, or with GROM_TPU_DEVICE_SV=0). Memoized per parameter
-    set and device, so the tables are uploaded once per process."""
-    if os.environ.get("GROM_TPU_DEVICE_SV", "") == "0":
+    """The scorer on ``device`` for the device engines ``torch`` and
+    ``mesh``, and for any engine with GROM_TPU_DEVICE_SV=1; None for the
+    host engine otherwise, and for every engine with GROM_TPU_DEVICE_SV=0.
+    Memoized per parameter set and device, so the tables are uploaded once
+    per process."""
+    dc = os.environ.get("GROM_TPU_DEVICE_SV", "")
+    if dc == "0":
         return None
-    if engine not in ("torch", "mesh"):
+    if dc != "1" and engine not in ("torch", "mesh"):
         return None
     dev = torch.device(device)
     key = (cfg.add_factor, cfg.max_trials, cfg.min_disc,

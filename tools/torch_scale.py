@@ -2,13 +2,15 @@
 
     python3 tools/torch_scale.py [--runs host,torch,mesh,torch_4m1m,torch_P8]
                                  [--length 250000000] [--repos DIR,DIR]
+    python3 tools/torch_scale.py --runs host,torch_hostcnv,mesh_hostcnv,host_devcnv
 
 Generates grom_tpu's 250 Mb WGS-scale chromosome (tests/test_wgs_scale.py
 ``test_250mb_bounded_memory``: 30x, seed 11, SNP rate 1e-3, a hotspot at
 40 Mb, a depression at 120 Mb, an AT repeat at 180 Mb) with the port's
 ``testing/bulk_sim.py bulk_dataset`` under build/ at first use (about 6.5
 GB of BAM), then runs ``python -m grom_tpu_torch`` on it, each run a fresh
-process with GROM_TPU_TIMING=1, in this order:
+process with GROM_TPU_TIMING=1, in this order (the last three only when
+``--runs`` names them):
 
 * ``host``: the host engine at the default geometry (16 Mi ingest chunks,
   4 Mi detect sub-chunks from 134,217,728 bases on): the reference output;
@@ -18,12 +20,18 @@ process with GROM_TPU_TIMING=1, in this order:
   (GROM_TPU_CHUNK_BASES, GROM_TPU_DETECT_BASES), the second geometry of
   grom_tpu's test;
 * ``torch_P8``: the torch engine under ``-P 8``: one chromosome, so one
-  worker, capped at ``cli.deal(8, ["cuda:0"])``'s share of the card.
+  worker, capped at ``cli.deal(8, ["cuda:0"])``'s share of the card;
+* ``torch_hostcnv``, ``mesh_hostcnv``: the torch and mesh engines with
+  GROM_TPU_DEVICE_CNV=0 (the native C CNV stage on the depth lists the
+  engine built);
+* ``host_devcnv``: the host engine with GROM_TPU_DEVICE_CNV=1 and
+  GROM_TPU_DEVICE_SV=1 (the CNV kernels and the SV scorer on the card).
 
 The device runs see only the first card (CUDA_VISIBLE_DEVICES). The host
 run always runs first. Each device run's VCF and .ctx.vcf must be
-byte-identical to the host run's, apart from the ##fileDate line, and
-must launch every kernel of its engine's path. When a run ends, one JSON
+byte-identical to the host run's, apart from the ##fileDate line, must
+launch every kernel of its path and none that its knobs keep off the
+card. When a run ends, one JSON
 line: its wall, its timed phases, its kernel launches, its
 ``peak_memory`` (the driver's line: peak host RSS with its label,
 ``vmhwm`` or ``sampled``, and the card's peak allocated and reserved
@@ -75,16 +83,30 @@ RUNS = {
     "torch_4m1m": ("torch", {"GROM_TPU_CHUNK_BASES": str(4 << 20),
                              "GROM_TPU_DETECT_BASES": str(1 << 20)}, []),
     "torch_P8": ("torch", {}, ["-P", "8"]),
+    "torch_hostcnv": ("torch", {"GROM_TPU_DEVICE_CNV": "0"}, []),
+    "mesh_hostcnv": ("mesh", {"GROM_TPU_DEVICE_CNV": "0"}, []),
+    "host_devcnv": ("host", {"GROM_TPU_DEVICE_CNV": "1",
+                             "GROM_TPU_DEVICE_SV": "1"}, []),
 }
-PHASES = ("scan.device", "scan.accumulate", "scan.deposits",
-          "ingest.read_bam", "call.cnv", "cnv.winscan_dev",
-          "cnv.seed_eval_dev", "cnv.zscores_dev", "cnv.nullmodel_dev",
-          "cnv.winscan", "cnv.zscores", "cnv.nullmodel", "call.sv_detect")
-# the kernels each device engine's path launches
-PATH_KERNELS = {"torch": ("tile_accumulate", "zscores", "seed_eval",
-                          "null_model", "sv_score"),
-                "mesh": ("tile_accumulate", "zscores", "seed_eval",
-                         "null_model", "sv_score", "rd_scatter", "rd_scan")}
+# the runs without --runs: all but the device policy's (one 3,600 s call
+# holds either set at 250 Mb)
+DEFAULT_RUNS = ("host", "torch", "mesh", "torch_4m1m", "torch_P8")
+CNV_KERNELS = ("zscores", "seed_eval", "null_model")
+MESH_KERNELS = ("rd_scatter", "rd_scan")
+# (the kernels a run must launch, the kernels it must not), by engine and
+# GROM_TPU_DEVICE_CNV
+PATH_KERNELS = {
+    ("torch", ""): (("tile_accumulate", "sv_score") + CNV_KERNELS,
+                    MESH_KERNELS),
+    ("mesh", ""): (("tile_accumulate", "sv_score") + CNV_KERNELS
+                   + MESH_KERNELS, ()),
+    ("torch", "0"): (("tile_accumulate", "sv_score"),
+                     CNV_KERNELS + MESH_KERNELS),
+    ("mesh", "0"): (("tile_accumulate", "sv_score") + MESH_KERNELS,
+                    CNV_KERNELS),
+    ("host", "1"): (CNV_KERNELS + ("sv_score",),
+                    ("tile_accumulate",) + MESH_KERNELS),
+}
 
 
 def say(*a) -> None:
@@ -136,13 +158,17 @@ def row_types(vcf: str) -> dict:
 
 
 def parse_stderr(err: str) -> dict:
-    """The timed phases (wall seconds), and the ``launches``,
-    ``peak_memory`` and ``parallel_job`` JSON lines of a run's stderr."""
+    """The timed phases (wall seconds: every row of the timing table), and
+    the ``launches``, ``peak_memory`` and ``parallel_job`` JSON lines of a
+    run's stderr."""
     out = {"phases": {}, "launches": None, "peak_memory": None, "jobs": [],
            "phase_rss_kib": {}}
+    in_table = False
     for ln in err.splitlines():
-        m = re.match(r"^(\S+)\s+([\d.]+)s\s", ln)
-        if m and m.group(1) in PHASES:
+        m = re.match(r"^(\S+)\s+([\d.]+)s\s", ln) if in_table else None
+        if ln.startswith("== grom_tpu timing =="):
+            in_table = True
+        elif m:
             out["phases"][m.group(1)] = float(m.group(2))
         elif ln.startswith("launches {"):
             out["launches"] = json.loads(ln.split(" ", 1)[1])
@@ -156,8 +182,7 @@ def parse_stderr(err: str) -> dict:
         rss = {}
         for job in out["jobs"]:
             for k, v in job.get("phases", {}).items():
-                if k in PHASES:
-                    out["phases"][k] = out["phases"].get(k, 0.0) + v
+                out["phases"][k] = out["phases"].get(k, 0.0) + v
             for k, v in (job.get("phase_rss_kib") or {}).items():
                 rss[k] = max(rss.get(k, 0), v)
     # in the order the peak grew
@@ -183,10 +208,11 @@ def run_one(name: str, fa: str, bam: str, repo: str = REPO,
     env = dict(os.environ, GROM_TPU_TIMING="1", GROM_TPU_TORCH_ENGINE=engine,
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
                                                             ""))
-    for k in ("GROM_TPU_CHUNK_BASES", "GROM_TPU_DETECT_BASES"):
+    for k in ("GROM_TPU_CHUNK_BASES", "GROM_TPU_DETECT_BASES",
+              "GROM_TPU_DEVICE_CNV", "GROM_TPU_DEVICE_SV"):
         env.pop(k, None)
     env.update(env_extra)
-    if engine != "host":
+    if name != "host":
         visible = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
         env["CUDA_VISIBLE_DEVICES"] = visible or "0"
     rec = {"run": name, "repo": os.path.relpath(repo, REPO),
@@ -219,7 +245,8 @@ def run_one(name: str, fa: str, bam: str, repo: str = REPO,
 def check_run(rec: dict, ref: dict) -> list:
     """What is wrong with a finished device run: a file that differs from
     the host run's, a kernel of its path never launched, a missing
-    reading, a peak host RSS above the host run's."""
+    reading, a peak host RSS above the host run's, a kernel launched that
+    the run's knobs keep off the card."""
     bad = []
     for suf in ("", ".ctx"):
         a = rec["vcf"][:-4] + suf + ".vcf"
@@ -227,9 +254,14 @@ def check_run(rec: dict, ref: dict) -> list:
         if body(a) != body(b):
             bad.append("%s differs from the host run's" % os.path.basename(a))
     launches = rec["launches"] or {}
-    for k in PATH_KERNELS[rec["engine"]]:
+    need, banned = PATH_KERNELS[rec["engine"], rec["env"].get(
+        "GROM_TPU_DEVICE_CNV", "")]
+    for k in need:
         if launches.get(k, 0) <= 0:
             bad.append("kernel %s was not launched" % k)
+    for k in banned:
+        if launches.get(k, 0) > 0:
+            bad.append("kernel %s was launched" % k)
     card = (rec["peak_memory"] or {}).get("card")
     if rec["jobs"]:
         card = {"max_allocated": max(j["max_memory_allocated"] or 0
@@ -255,7 +287,7 @@ def nvidia_smi_line() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--runs", default=",".join(RUNS),
+    ap.add_argument("--runs", default=",".join(DEFAULT_RUNS),
                     help="comma-separated subset of %s" % ",".join(RUNS))
     ap.add_argument("--length", type=int, default=DATASET["length"])
     ap.add_argument("--repos", default=".",
