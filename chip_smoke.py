@@ -20,8 +20,8 @@ non-zero without its result line:
    launches and chunks on the card;
 5. real size: one 24 Mb chromosome at 30x (grom_tpu_torch.testing.bulk_sim,
    seed 5), host engine (the CLI in a fresh process, with its
-   ``peak_memory`` line) then torch engine, VCF and .ctx.vcf
-   byte-identical;
+   ``peak_memory`` line; it must not load torch) then torch engine, VCF
+   and .ctx.vcf byte-identical;
    the launch counts of the torch run, its phases ``scan.device``,
    ``cnv.zscores_dev``, ``cnv.nullmodel_dev`` and ``call.sv_detect``, the
    host time of one ``SvScorer`` call on the largest SV window, every
@@ -51,10 +51,11 @@ non-zero without its result line:
    grom_tpu's human-like proportions, testing/bulk_sim.py ``bulk_genome``)
    through the CLI's ``run_parallel`` with two workers, on the host engine
    and then on the default engine (both workers on the card), VCF and
-   .ctx.vcf byte-identical; each job's worker, card, peak card memory,
-   host memory, wall and CPU seconds; the launches summed over the
-   workers (every kernel of the torch path, a tile launch at least per
-   2^18 bases of each chromosome); then ``-P 2 -R 1`` on a 2.6 Mb
+   .ctx.vcf byte-identical; no worker of a host run may load torch; each
+   job's worker, card, peak card memory, host memory, wall and CPU
+   seconds; the launches summed over the workers (every kernel of the
+   torch path, a tile launch at least per 2^18 bases of each
+   chromosome); then ``-P 2 -R 1`` on a 2.6 Mb
    chromosome at 30x (three region jobs), card against host;
 8. the default geometry of a human chromosome (16 Mi ingest chunks, 4 Mi
    detect sub-chunks, which a chromosome gets from 134,217,728 bases on)
@@ -74,9 +75,9 @@ non-zero without its result line:
    launch), and the host engine with GROM_TPU_DEVICE_CNV=1 and
    GROM_TPU_DEVICE_SV=1 (the CNV kernels and the SV scorer on the card,
    the scan on the host: all four must launch, and neither the tile
-   kernel nor K5 nor K6); VCF and .ctx.vcf byte-identical to phase 5's
-   host output; each run's wall, ``call.cnv`` and its ``cnv.*`` phases,
-   launches and ``peak_memory`` line.
+   kernel nor K5 nor K6; the run must load torch); VCF and .ctx.vcf
+   byte-identical to phase 5's host output; each run's wall, ``call.cnv``
+   and its ``cnv.*`` phases, launches and ``peak_memory`` line.
 
 Output: per-phase lines, the card's name and power limit, one JSON line
 with the kernel table (each kernel's time beside its bound: the larger of
@@ -942,6 +943,9 @@ def phase_real_size() -> dict:
     dev_vcf = os.path.join(OUT, "bulk.torch.vcf")
     HOST_RUN.update(run_child(args + ["-o", host_vcf], "host", {}))
     t_host = HOST_RUN["wall_s"]
+    if HOST_RUN["modules"]["torch"]:
+        raise AssertionError("the host engine's run loaded torch")
+    say("host engine run (a fresh process): torch not loaded")
 
     timing.timing_enable(True)
     timing.reset()
@@ -1324,6 +1328,15 @@ def report_jobs(label: str, wall: float, reps) -> None:
         % (label, wall, cpu, cpu / wall, os.cpu_count()))
 
 
+def check_host_jobs(label: str, reps) -> None:
+    """No worker of a host-engine -P run loaded torch."""
+    bad = [r["job"] for r in reps if r["torch_loaded"]]
+    if bad:
+        raise AssertionError("%s: the workers of jobs %s loaded torch"
+                             % (label, bad))
+    say("%s: %d jobs, no worker loaded torch" % (label, len(reps)))
+
+
 def check_card_jobs(label: str, reps, launches: dict) -> None:
     """Every job of a -P run on a card, and the parent's launch counts
     equal to the sum of the jobs'."""
@@ -1367,6 +1380,7 @@ def phase_parallel() -> None:
     say("wall: host engine -P 2 %.2f s, %s engine -P 2 %.2f s"
         % (t_host, reps[0]["engine"], t_card))
     report_jobs("host -P 2", t_host, host_reps)
+    check_host_jobs("host -P 2", host_reps)
     report_jobs("card -P 2", t_card, reps)
     say("launches summed over the workers:", json.dumps(launches))
     check_card_jobs("-P 2", reps, launches)
@@ -1388,6 +1402,7 @@ def phase_parallel() -> None:
     same_files(card_vcf, host_vcf)
     if len(reps) != 3:
         raise AssertionError("-R 1: %d jobs, not 3" % len(reps))
+    check_host_jobs("host -P 2 -R 1", host_reps)
     check_card_jobs("-P 2 -R 1", reps, launches)
     for k in TORCH_PATH:
         if launches.get(k, 0) <= 0:
@@ -1404,8 +1419,8 @@ def phase_parallel() -> None:
 def run_child(argv, engine_name: str, env_extra: dict) -> dict:
     """One run of the port's CLI in a fresh process (``cli_child``) with
     GROM_TPU_TIMING=1; returns its wall seconds, its timed phases' wall
-    seconds (``phases``) and its ``launches``, ``peak_memory`` and
-    ``k5_largest`` stderr lines, parsed."""
+    seconds (``phases``) and its ``launches``, ``peak_memory``,
+    ``k5_largest`` and ``modules`` stderr lines, parsed."""
     env = dict(os.environ, GROM_TPU_TORCH_ENGINE=engine_name,
                GROM_TPU_TIMING="1", **env_extra)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -1428,10 +1443,10 @@ def run_child(argv, engine_name: str, env_extra: dict) -> dict:
             out["phases"][row.group(1)] = float(row.group(2))
             continue
         key, _, rest = ln.partition(" ")
-        if key in ("launches", "peak_memory", "k5_largest") and \
+        if key in ("launches", "peak_memory", "k5_largest", "modules") and \
                 rest.startswith("{"):
             out[key] = json.loads(rest)
-    for key in ("launches", "peak_memory"):
+    for key in ("launches", "peak_memory", "modules"):
         if key not in out:
             raise AssertionError("%s run printed no %s line"
                                  % (engine_name, key))
@@ -1442,9 +1457,10 @@ def cli_child(argv) -> int:
     """``python chip_smoke.py --cli-child <CLI arguments>``: the port's CLI
     (``cli.main``, as ``python -m grom_tpu_torch`` runs it) in this fresh
     process, with K5's largest call (the most spans; its cells) printed as
-    a ``k5_largest {...}`` line on stderr when the run made one. Only a
-    mesh-engine run imports torch here: a host-engine run's memory is the
-    CLI's own."""
+    a ``k5_largest {...}`` line on stderr when the run made one, and at
+    its end a ``modules {"torch": ...}`` line: whether the run loaded
+    torch. Only a mesh-engine run imports torch here: a host-engine run's
+    memory and modules are the CLI's own."""
     sys.path.insert(0, REPO)
     from grom_tpu_torch import cli
     largest = {}
@@ -1465,6 +1481,8 @@ def cli_child(argv) -> int:
     if largest:
         print("k5_largest " + json.dumps(largest), file=sys.stderr,
               flush=True)
+    print("modules " + json.dumps({"torch": "torch" in sys.modules}),
+          file=sys.stderr, flush=True)
     return rc
 
 
@@ -1545,6 +1563,8 @@ def phase_device_policy() -> None:
         if name == "host":
             need = CNV_PATH + ("sv_score",)
             banned = ("tile_accumulate",) + MESH_ONLY
+            if not res["modules"]["torch"]:
+                raise AssertionError("%s: torch was not loaded" % label)
         else:
             need = ("tile_accumulate", "sv_score") + (
                 MESH_ONLY if name == "mesh" else ())

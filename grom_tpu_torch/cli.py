@@ -185,7 +185,9 @@ def _run_one_chromosome(args):
     CPU seconds, the worker's peak resident host memory in KiB
     (``utils/peakmem.py``; ``getrusage``'s ru_maxrss would not do: a
     spawned worker inherits its parent's across the exec) and its label
-    (``rss_source``: ``vmhwm`` or ``sampled``), and under
+    (``rss_source``: ``vmhwm`` or ``sampled``), whether the worker has
+    loaded torch (``torch_loaded``: a host-engine worker with no stage on
+    the device loads none), and under
     GROM_TPU_TIMING=1 the wall seconds of the job's timed phases
     (``phases``) and the worker's peak RSS at each one's last end
     (``phase_rss_kib``)."""
@@ -226,7 +228,8 @@ def _run_one_chromosome(args):
                "wall_s": time.perf_counter() - start,
                "cpu_s": (ru.ru_utime - ru0.ru_utime
                          + ru.ru_stime - ru0.ru_stime),
-               "max_rss_kib": rss, "rss_source": source}
+               "max_rss_kib": rss, "rss_source": source,
+               "torch_loaded": "torch" in sys.modules}
         if timing.timing_enabled():
             from grom_tpu_torch.driver import phase_rss_kib
             snap = timing.report(file=io.StringIO())

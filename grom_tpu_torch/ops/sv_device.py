@@ -20,6 +20,10 @@ out), with its tables uploaded once and one copy each way a window.
 ``GROM_TPU_DEVICE_SV=1``, off everywhere with ``GROM_TPU_DEVICE_SV=0``. The
 scorer is always f64, so grom_tpu's x64 gate has no counterpart here. A
 failed build or launch raises; nothing falls back to the host screen.
+
+As in grom_tpu, the module imports no torch: each function imports it
+where it runs, and ``maybe_scorer`` only past its gate, so a host-engine
+run that leaves the scorer off loads no torch.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import os
 from typing import NamedTuple, Optional
 
 import numpy as np
-import torch
 
 from grom_tpu_torch.call.deposits import E_CTX_R
 from grom_tpu_torch.call.sv_screen import _ETYPE_KIND
@@ -61,6 +64,7 @@ class SvParams(NamedTuple):
 
 def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
     """numpy's integer ``a // b``: floors, and gives 0 where b == 0."""
+    import torch
     if isinstance(b, int):
         if b == 0:
             return torch.zeros_like(a)
@@ -72,6 +76,7 @@ def _floordiv(a: torch.Tensor, b) -> torch.Tensor:
 
 def _ratio_gate(weak: torch.Tensor, strong: torch.Tensor) -> torch.Tensor:
     """(float)weak / (float)strong <= 0.25 in f32; NaN and inf are False."""
+    import torch
     f32 = torch.float32
     return weak.to(f32) / strong.to(f32) <= 0.25
 
@@ -84,6 +89,7 @@ def score_bytes(n: int) -> int:
 def pack_scores(kind, accept, binom, hez) -> torch.Tensor:
     """The four score columns as one uint8 buffer: binom f64, hez f64,
     kind int32, accept bool, back to back (the kernel's layout)."""
+    import torch
     u8 = torch.uint8
     return torch.cat([binom.view(u8), hez.view(u8), kind.view(u8),
                       accept.view(u8)])
@@ -92,6 +98,7 @@ def pack_scores(kind, accept, binom, hez) -> torch.Tensor:
 def unpack_scores(buf: torch.Tensor, n: int):
     """(kind int32, accept bool, binom f64, hez f64), each [n], as views of
     a packed score buffer."""
+    import torch
     return (buf[16 * n:20 * n].view(torch.int32),
             buf[20 * n:21 * n].view(torch.bool),
             buf[:8 * n].view(torch.float64),
@@ -101,6 +108,7 @@ def unpack_scores(buf: torch.Tensor, n: int):
 def score_sv_entries_plain(entries, tables: SvTables, p: SvParams):
     """The scorer in plain torch. ``entries`` int64 [9, n], one row per
     ``ENTRY_KEYS`` column. Returns the packed scores (``pack_scores``)."""
+    import torch
     pos, etype, count, rs, re, rd, weak_f, weak_r, ctx_f_here = entries
     af, mt = p.af, p.mt
     kind = tables.kind[etype]
@@ -146,6 +154,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _sv_score_cuda(entries, tables: SvTables, p: SvParams):
+    import torch
     dev = entries.device
     if (entries.dtype != torch.int64 or entries.dim() != 2
             or entries.shape[0] != len(ENTRY_KEYS)
@@ -180,6 +189,7 @@ def sv_score(entries, tables: SvTables, p: SvParams):
     """Score one window's entries (int64 [9, n]) into the packed scores:
     the CUDA kernel for CUDA tensors, ``score_sv_entries_plain`` for CPU
     tensors."""
+    import torch
     kind = entries.device.type
     if kind == "cuda":
         with torch.cuda.device(entries.device):
@@ -201,6 +211,8 @@ class SvScorer:
     def __init__(self, mq_tab: np.ndarray, hez_tab: np.ndarray, af: int,
                  mt: int, md: int, thr1: float, mean: int, lseq: int,
                  device):
+        import torch
+
         from grom_tpu_torch.ops.state import sv_tables
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -240,6 +252,7 @@ def maybe_scorer(engine: Optional[str], mq_tab: np.ndarray,
         return None
     if dc != "1" and engine not in ("torch", "mesh"):
         return None
+    import torch
     dev = torch.device(device)
     key = (cfg.add_factor, cfg.max_trials, cfg.min_disc,
            cfg.pval_threshold1, drv.insert_mean, drv.read_len, str(dev))

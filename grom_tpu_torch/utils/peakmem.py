@@ -116,12 +116,13 @@ def host_peak(status: Optional[str] = None
 def card_peak(devices: Iterable = ()) -> Optional[dict]:
     """The largest ``max_memory_allocated`` and ``max_memory_reserved``
     (bytes) over the CUDA devices among ``devices``; None when none is a
-    CUDA device (the CPU)."""
-    import torch
-    cuda = sorted({torch.device(d) for d in devices
-                   if torch.device(d).type == "cuda"}, key=str)
-    if not cuda:
+    CUDA device (the CPU), and then without importing torch: the host
+    engine loads none."""
+    devices = [d for d in devices if str(d).startswith("cuda")]
+    if not devices:
         return None
+    import torch
+    cuda = sorted({torch.device(d) for d in devices}, key=str)
     cuda = [torch.device("cuda", torch.cuda.current_device())
             if d.index is None else d for d in cuda]
     for d in cuda:

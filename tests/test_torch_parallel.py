@@ -299,7 +299,8 @@ def test_worker_failure_fails_the_run(tmp_path, monkeypatch):
 def test_cli_parallel_never_imports_jax(tmp_path):
     """``-P 2`` under ``python -X importtime`` (which spawn passes on to
     the workers): the parent and both workers import the port's CLI, and
-    no process loads a module of jax or grom_tpu."""
+    no process loads a module of jax or grom_tpu, nor torch (the host
+    engine)."""
     out = str(tmp_path / "o.vcf")
     r = _cli(["-X", "importtime", "-m", "grom_tpu_torch",
               *_fixture_args("ctx2x60k"), "-o", out, "-P", "2"],
@@ -308,7 +309,7 @@ def test_cli_parallel_never_imports_jax(tmp_path):
     mods = [ln.rsplit("|", 1)[-1].strip() for ln in r.stderr.splitlines()
             if ln.startswith("import time:")]
     assert mods.count("grom_tpu_torch.cli") == 3
-    assert "grom_tpu_torch.driver" in mods
+    assert "grom_tpu_torch.driver" in mods and "torch" not in mods
     assert not _foreign(mods)
     from test_full_parity import _rows
     assert _rows(out[:-4] + ".ctx.vcf") == _rows(

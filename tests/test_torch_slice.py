@@ -205,7 +205,8 @@ def _foreign(mods):
 
 def test_cli_never_imports_jax(tmp_path):
     """``python -m grom_tpu_torch`` on ds200k on the host engine matches
-    the oracle, and the import log shows no module of jax or grom_tpu."""
+    the oracle, and the import log shows no module of jax or grom_tpu,
+    nor torch: the host engine puts no stage on a device."""
     d = os.path.join(DATA, "ds200k")
     out = str(tmp_path / "o.vcf")
     r = _cli(["-X", "importtime", "-m", "grom_tpu_torch",
@@ -214,7 +215,7 @@ def test_cli_never_imports_jax(tmp_path):
     assert r.returncode == 0, r.stderr[-3000:]
     mods = [ln.rsplit("|", 1)[-1].strip() for ln in r.stderr.splitlines()
             if ln.startswith("import time:")]
-    assert "grom_tpu_torch.driver" in mods and "torch" in mods
+    assert "grom_tpu_torch.driver" in mods and "torch" not in mods
     assert "grom_tpu_torch.native" in mods
     assert not _foreign(mods)
     assert _rows(out) == _rows(os.path.join(d, "oracle.vcf"))

@@ -46,10 +46,13 @@ kernels. ``--length`` cuts the chromosome (planted features past the cut
 are dropped), never below 135,000,000 bases: below 134,217,728 the
 default ingest chunk is no longer 16 Mi.
 
-``--repos A,B`` runs each device run from each checkout in turn (A, B,
-A, B, ...), against one host run from the last: to hold a change against
-its parent in one call, unpack the parent with ``git archive`` into a
-gitignored directory (``proof/parent``) and pass ``proof/parent,.``.
+``--repos A,B`` runs the host run from the last checkout first (the
+reference), then from each other checkout (held byte for byte to the
+reference, and to no RSS rule), then each device run from each checkout
+in turn (A, B, A, B, ...): to hold a change against its parent in one
+call, unpack the parent with ``git archive`` into a gitignored directory
+(``proof/parent``) and pass ``proof/parent,.`` (``.,proof/parent`` runs
+the parent's host run first).
 """
 
 from __future__ import annotations
@@ -242,17 +245,23 @@ def run_one(name: str, fa: str, bam: str, repo: str = REPO,
     return rec
 
 
-def check_run(rec: dict, ref: dict) -> list:
-    """What is wrong with a finished device run: a file that differs from
-    the host run's, a kernel of its path never launched, a missing
-    reading, a peak host RSS above the host run's, a kernel launched that
-    the run's knobs keep off the card."""
+def differs(rec: dict, ref: dict) -> list:
+    """The files of a finished run that differ from the host run's."""
     bad = []
     for suf in ("", ".ctx"):
         a = rec["vcf"][:-4] + suf + ".vcf"
         b = ref["vcf"][:-4] + suf + ".vcf"
         if body(a) != body(b):
             bad.append("%s differs from the host run's" % os.path.basename(a))
+    return bad
+
+
+def check_run(rec: dict, ref: dict) -> list:
+    """What is wrong with a finished device run: a file that differs from
+    the host run's, a kernel of its path never launched, a missing
+    reading, a peak host RSS above the host run's, a kernel launched that
+    the run's knobs keep off the card."""
+    bad = differs(rec, ref)
     launches = rec["launches"] or {}
     need, banned = PATH_KERNELS[rec["engine"], rec["env"].get(
         "GROM_TPU_DEVICE_CNV", "")]
@@ -292,7 +301,7 @@ def main(argv=None) -> int:
     ap.add_argument("--length", type=int, default=DATASET["length"])
     ap.add_argument("--repos", default=".",
                     help="comma-separated checkouts, relative to the repo; "
-                         "the host run is the last one's")
+                         "the reference host run is the last one's")
     a = ap.parse_args(argv)
     repos = [os.path.normpath(os.path.join(REPO, r))
              for r in a.repos.split(",") if r]
@@ -321,15 +330,18 @@ def main(argv=None) -> int:
     fa, bam = dataset(a.length)
     tags = {r: "" if len(repos) == 1 else "%s." % (
         "this" if r == REPO else os.path.basename(r)) for r in repos}
-    todo = [("host", repos[-1])] + [(n, r) for n in runs[1:] for r in repos]
+    todo = ([("host", repos[-1])] + [("host", r) for r in repos[:-1]]
+            + [(n, r) for n in runs[1:] for r in repos])
     records, ok, ref = [], True, None
     for name, repo in todo:
         rec = run_one(name, fa, bam, repo, tags[repo])
         if rec["rc"] != 0:
             rec["problems"] = ["exited %d" % rec["rc"]]
-        elif name == "host":
+        elif ref is None:
             rec["problems"] = []
             ref = rec
+        elif name == "host":
+            rec["problems"] = differs(rec, ref)
         else:
             rec["problems"] = check_run(rec, ref)
         rec["identical"] = rec["rc"] == 0 and not any(

@@ -11,15 +11,19 @@ engines (``python -m grom_tpu_torch``, GROM_TPU_TORCH_ENGINE=...);
 allocator (GROM_TPU_HUGEALLOC=0). Odd rounds run the engines in the
 reverse order, so each sits early and late once per pair of rounds.
 Every run has GROM_TPU_TIMING=1; its phase table is parsed from stderr
-(the phases below and every ``mesh.*`` label of the mesh engine).
+(the phases below and every ``mesh.*`` label of the mesh engine), and
+for the port's engines its ``peak_memory`` line: the peak host RSS
+(``rss_peak_kib``, ``rss_source``) and the peak at each timed phase's
+last end (``phase_rss_kib``).
 ``--repos`` runs each engine from each of several checkouts in turn (a
 parent commit unpacked with ``git archive`` into a gitignored directory
 of this one: parent, change, change, parent over two rounds). Every VCF and .ctx.vcf must equal the first
 run's, byte for byte apart from the ##fileDate line.
 
-Prints one line per run (engine, wall, phases), the card's name and power
-limit, and a JSON line with every run. The dataset and outputs go under
-build/ (the dataset is chip_smoke.py's, generated at first use).
+Prints one line per run (engine, wall, peak RSS, phases), the card's
+name and power limit, and a JSON line with every run. The dataset and
+outputs go under build/ (the dataset is chip_smoke.py's, generated at
+first use).
 """
 
 from __future__ import annotations
@@ -61,13 +65,18 @@ def run_one(engine: str, argv, vcf: str, repo: str = REPO) -> dict:
     if r.returncode != 0:
         raise RuntimeError("%s exited %d:\n%s" % (engine, r.returncode,
                                                   r.stderr[-4000:]))
-    phases = {}
+    phases, mem = {}, {}
     for ln in r.stderr.splitlines():
         m = re.match(r"^(\S+)\s+([\d.]+)s\s", ln)
         if m and (m.group(1) in PHASES or m.group(1).startswith("mesh.")):
             phases[m.group(1)] = float(m.group(2))
+        elif ln.startswith("peak_memory {"):
+            mem = json.loads(ln.split(" ", 1)[1])
     return {"engine": engine, "repo": os.path.relpath(repo, REPO),
-            "wall_s": wall, "phases": phases}
+            "wall_s": wall, "phases": phases,
+            "rss_peak_kib": mem.get("rss_peak_kib"),
+            "rss_source": mem.get("rss_source"),
+            "phase_rss_kib": mem.get("phase_rss_kib")}
 
 
 def body(path: str) -> bytes:
@@ -111,9 +120,11 @@ def main() -> int:
             runs.append(res)
             phases = " ".join("%s %.3f" % kv
                               for kv in sorted(res["phases"].items()))
-            print("%-9s %-14s %8.3f s  %s" % (engine, res["repo"],
-                                              res["wall_s"], phases),
-                  flush=True)
+            rss = res["rss_peak_kib"]
+            print("%-9s %-14s %8.3f s  %s  %s" % (
+                engine, res["repo"], res["wall_s"],
+                "-" if rss is None else "%.3f GiB" % (rss / 2**20), phases),
+                flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
