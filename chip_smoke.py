@@ -65,7 +65,12 @@ non-zero without its result line:
    sub-chunks), VCF and .ctx.vcf byte-identical to phase 5's host output;
    each run's launches (every kernel of its path), its ``peak_memory``
    line (peak host RSS with its label, peak card memory) and, on the mesh
-   engine, K5's largest run (spans and cells); then the peak host RSS at
+   engine, K5's largest run (spans and cells); where the run's depth
+   lists lived through the scan (the ``peak_memory`` line's
+   ``depth_lists``: it fails unless on the card, 12 bytes a base), the
+   card's peak allocated bytes at the scan's end beside the run's, and the
+   pinned host memory of torch's caching host allocator (``pinned``, its
+   peak); then the peak host RSS at
    each timed phase's last end (the timing table's ``livemax``) of these
    two runs and of phase 5's host run, in the order the peak grew;
 9. grom_tpu's per-stage device policy on phase 5's 24 Mb dataset, each
@@ -1526,6 +1531,33 @@ def phase_wide_chunks() -> None:
                else "%.2f" % (mem["rss_peak_kib"] / 2**20),
                mem["rss_source"], card["max_allocated"] / 2**20,
                card["max_reserved"] / 2**20))
+        lists = mem.get("depth_lists") or {}
+        where = lists.get("scan") or []
+        if not where or "host" in where or not all(
+                w.startswith("cuda") for w in where):
+            raise AssertionError("16 Mi %s run: the depth lists lived on %s "
+                                 "during the scan, not on the card"
+                                 % (name, where or "nothing reported"))
+        bound = 12 * BULK["length"]
+        if lists.get("card_bytes") != bound:
+            raise AssertionError("16 Mi %s run: the depth lists took %s card "
+                                 "bytes, not 12 a base (%d)"
+                                 % (name, lists.get("card_bytes"), bound))
+        pinned = mem.get("pinned") or {}
+        if pinned.get("peak") is None:
+            raise AssertionError("16 Mi %s run: no pinned host memory "
+                                 "reading" % name)
+        if not lists.get("card_peak_scan"):
+            raise AssertionError("16 Mi %s run: no card peak at the scan's "
+                                 "end" % name)
+        say("16 Mi %s run: depth lists on %s through the scan, %.1f MiB of "
+            "card memory; card peak allocated %.1f MiB at the scan's end, "
+            "%.1f MiB over the run; pinned host memory of torch's host "
+            "cache: peak %.1f MiB, %.1f MiB at the end"
+            % (name, ",".join(where), lists["card_bytes"] / 2**20,
+               lists["card_peak_scan"] / 2**20,
+               card["max_allocated"] / 2**20, pinned["peak"] / 2**20,
+               (pinned.get("current") or 0) / 2**20))
         if name == "mesh":
             k5 = res.get("k5_largest")
             if not k5:

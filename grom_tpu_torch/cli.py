@@ -187,7 +187,9 @@ def _run_one_chromosome(args):
     spawned worker inherits its parent's across the exec) and its label
     (``rss_source``: ``vmhwm`` or ``sampled``), whether the worker has
     loaded torch (``torch_loaded``: a host-engine worker with no stage on
-    the device loads none), and under
+    the device loads none), the pinned host memory of torch's caching
+    host allocator (``pinned``) and where the job's depth lists lived
+    through the scan (``depth_lists``), and under
     GROM_TPU_TIMING=1 the wall seconds of the job's timed phases
     (``phases``) and the worker's peak RSS at each one's last end
     (``phase_rss_kib``)."""
@@ -197,7 +199,7 @@ def _run_one_chromosome(args):
     on_card = device.startswith("cuda")
     import numpy as np
 
-    from grom_tpu_torch import _build
+    from grom_tpu_torch import _build, driver
     from grom_tpu_torch.config import DerivedConfig, GromConfig
     from grom_tpu_torch.driver import call_chromosome, call_chromosome_streamed
     from grom_tpu_torch.ingest import bam as bam_mod
@@ -209,6 +211,7 @@ def _run_one_chromosome(args):
     start = time.perf_counter()
     ru0 = resource.getrusage(resource.RUSAGE_SELF)
     _build.reset_launches()
+    driver.DEPTH_LISTS.clear()
     timing.reset()
     if on_card:
         import torch
@@ -229,7 +232,9 @@ def _run_one_chromosome(args):
                "cpu_s": (ru.ru_utime - ru0.ru_utime
                          + ru.ru_stime - ru0.ru_stime),
                "max_rss_kib": rss, "rss_source": source,
-               "torch_loaded": "torch" in sys.modules}
+               "torch_loaded": "torch" in sys.modules,
+               "pinned": peakmem.pinned_host([device]),
+               "depth_lists": driver.depth_lists_report()}
         if timing.timing_enabled():
             from grom_tpu_torch.driver import phase_rss_kib
             snap = timing.report(file=io.StringIO())

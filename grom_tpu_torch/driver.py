@@ -34,6 +34,7 @@ without a card raises, and so does the default engine choice.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import sys
 from dataclasses import dataclass
@@ -52,6 +53,10 @@ from grom_tpu_torch.stats import binom
 from grom_tpu_torch.vcfio.writer import VcfWriter
 
 ENGINES = ("host", "torch", "mesh")
+# where each streamed chromosome of this process kept its depth lists
+# through the scan stage ("host", or a device engine's device) and the
+# card bytes they took: the ``depth_lists`` field of ``peak_memory``
+DEPTH_LISTS: List[dict] = []
 
 
 @dataclass
@@ -253,11 +258,30 @@ def phase_rss_kib(snap: dict) -> Dict[str, int]:
     return {k: v[6] >> 10 for k, v in snap.items()}
 
 
+def depth_lists_report() -> dict:
+    """``DEPTH_LISTS`` summed up: where this process's streamed chromosomes
+    kept their depth lists through the scan stage (``scan``: each place
+    once, in order), the largest card bytes they took, and the card's
+    peak allocated bytes as a scan on the card ended (``card_peak_scan``;
+    None off the card)."""
+    scan: List[str] = []
+    for rec in DEPTH_LISTS:
+        if rec["where"] not in scan:
+            scan.append(rec["where"])
+    peaks = [rec["card_peak_scan"] for rec in DEPTH_LISTS
+             if "card_peak_scan" in rec]
+    return {"scan": scan, "card_bytes": max(
+        (rec["card_bytes"] for rec in DEPTH_LISTS), default=0),
+        "card_peak_scan": max(peaks) if peaks else None}
+
+
 def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     """The run's kernel launches (``_build.LAUNCHES``) and its peak host and
     card memory (``utils/peakmem.py``), one JSON line each on stderr:
     ``launches {...}`` and ``peak_memory {...}``, the latter with the
-    timed phases' peaks (``phase_rss_kib``)."""
+    timed phases' peaks (``phase_rss_kib``), the pinned host memory of
+    torch's caching host allocator (``pinned``) and where the streamed
+    chromosomes' depth lists lived through the scan (``depth_lists``)."""
     import json
 
     from grom_tpu_torch import _build
@@ -273,6 +297,8 @@ def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     print("launches " + json.dumps(dict(_build.LAUNCHES)), file=sys.stderr)
     mem = peakmem.report(devices)
     mem["phase_rss_kib"] = phase_rss_kib(snap)
+    mem["pinned"] = peakmem.pinned_host(devices)
+    mem["depth_lists"] = depth_lists_report()
     print("peak_memory " + json.dumps(mem), file=sys.stderr, flush=True)
 
 
@@ -703,17 +729,12 @@ class _ChunkDetect:
                 break
 
 
-def _accumulate_rd_window(rd_mq: np.ndarray, rd_hi: np.ndarray,
-                          rd_lo: np.ndarray, L: int, batch,
-                          eligible: np.ndarray, cfg: GromConfig, lo: int,
-                          hi: int) -> None:
-    """``scan._accumulate_rd_lists`` of the ingest chunk [lo, hi) in
-    O(hi - lo + spans): the same spans (kept on the whole-span rule
-    against L, clipped to [lo, hi)), their endpoint counts summed over the
-    window only and added into the lists' window, where
-    ``_accumulate_rd_lists`` sums over the whole chromosome (four [L]
-    int64 arrays a list, each call). Every count is an integer, so the
-    lists are the same."""
+def _rd_window_spans(L: int, batch, eligible: np.ndarray, lo: int,
+                     hi: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The spans ``scan._accumulate_rd_lists`` counts in the ingest chunk
+    [lo, hi): eligible reads' spans kept on the whole-span rule against L,
+    clipped to [lo, hi); (starts, ends) relative to ``lo``, and their
+    reads' mapq."""
     sel = eligible[batch.span_read]
     ref = batch.span_ref[sel]
     ln = batch.span_len[sel]
@@ -724,7 +745,22 @@ def _accumulate_rd_window(rd_mq: np.ndarray, rd_hi: np.ndarray,
     s_cl = np.maximum(ref, lo)
     e_cl = np.minimum(ref + ln, hi)
     keep = e_cl > s_cl
-    s_cl, e_cl, mapq = s_cl[keep] - lo, e_cl[keep] - lo, mapq[keep]
+    return s_cl[keep] - lo, e_cl[keep] - lo, mapq[keep]
+
+
+def _accumulate_rd_window(rd_mq: np.ndarray, rd_hi: np.ndarray,
+                          rd_lo: np.ndarray, L: int, batch,
+                          eligible: np.ndarray, cfg: GromConfig, lo: int,
+                          hi: int) -> None:
+    """``scan._accumulate_rd_lists`` of the ingest chunk [lo, hi) into host
+    lists in O(hi - lo + spans): the spans of ``_rd_window_spans``, their
+    endpoint counts summed over the window only and added into the lists'
+    window, where ``_accumulate_rd_lists`` sums over the whole chromosome
+    (four [L] int64 arrays a list, each call). Every count is an integer,
+    so the lists are the same. The torch engine adds the same spans into
+    ``ops/state.py DepthLists`` on its device instead; this host form is
+    the reference the tests hold it to."""
+    s_cl, e_cl, mapq = _rd_window_spans(L, batch, eligible, lo, hi)
     hi_m = mapq >= cfg.min_mapq
     n = hi - lo
 
@@ -740,6 +776,28 @@ def _accumulate_rd_window(rd_mq: np.ndarray, rd_hi: np.ndarray,
     add_depth(rd_mq, s_cl, e_cl, mapq.astype(np.float64))
     add_depth(rd_hi, s_cl[hi_m], e_cl[hi_m])
     add_depth(rd_lo, s_cl[~hi_m], e_cl[~hi_m])
+
+
+@functools.lru_cache(maxsize=None)
+def _malloc_trim():
+    """glibc's ``malloc_trim``, or None off glibc."""
+    import ctypes
+    try:
+        return ctypes.CDLL(None).malloc_trim
+    except (OSError, AttributeError):
+        return None
+
+
+def _release_free_heap() -> None:
+    """Hand the free pages glibc's heap keeps back to the system
+    (``malloc_trim(0)``). The port raises glibc's trim threshold to 1 GiB
+    (``grom_tpu_torch/__init__.py _tune_malloc``), so the heap keeps what
+    a detect sub-chunk's host work frees, resident, into the next one's:
+    a device engine's scan calls this after each drained sub-chunk and
+    each ingest chunk."""
+    trim = _malloc_trim()
+    if trim is not None:
+        trim(0)
 
 
 def _batch_for_range(batch, eligible: np.ndarray, lo: int, hi: int):
@@ -785,7 +843,10 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     On the device engines every drained detect sub-chunk goes through
     ``TorchAccumulator.run`` (torch: the tile kernel) or
     ``MeshAccumulator.run`` (mesh: the tile kernel per cell, and the depth
-    lists); on the host engine through the native tally engine. Returns
+    lists); on the host engine through the native tally engine. The
+    device engines keep the depth lists on their device through the scan
+    (``ops/state.py DepthLists``) and copy them to the host once it has
+    ended. Returns
     None when the deposit ring rejects the data (freak CIGARs) — the caller
     redoes the chromosome via the whole-batch path on the same engine."""
     from grom_tpu_torch.call.deposits import DepositsSession
@@ -812,14 +873,23 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     C = max(C, D)
 
     acc, sv_dev = None, device
+    # whole-chromosome per-base state is ONLY the depth lists (the CNV
+    # engine's inputs — the reference holds the same, src/GROM.c:6605-6664).
+    # A device engine holds them on its device (the mesh engine's on its
+    # collective device) until the scan has ended: on the host they would
+    # add 12 bytes a base to the scan stage's peak
+    lists = rd_mq = rd_hi = rd_lo = None
     if device_engine:
         acc, sv_dev = _accumulator(engine, device, mesh)
-
-    # whole-chromosome per-base state is ONLY the depth lists (the CNV
-    # engine's inputs — the reference holds the same, src/GROM.c:6605-6664)
-    rd_mq = np.zeros(L, np.int32)
-    rd_hi = np.zeros(L, np.int32)
-    rd_lo = np.zeros(L, np.int32)
+        from grom_tpu_torch.ops.state import DepthLists
+        lists = DepthLists(L, acc.coll if mesh_mode else sv_dev)
+        DEPTH_LISTS.append({"where": str(lists.device),
+                            "card_bytes": lists.nbytes})
+    else:
+        rd_mq = np.zeros(L, np.int32)
+        rd_hi = np.zeros(L, np.int32)
+        rd_lo = np.zeros(L, np.int32)
+        DEPTH_LISTS.append({"where": "host", "card_bytes": 0})
 
     det = _ChunkDetect(chrom, cfg, drv, mq_table, hez_table, scan_start,
                        engine=engine, device=sv_dev)
@@ -857,8 +927,7 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
             else:
                 gate = dense.rd[:n].astype(np.int64) + dense.indel_sc_rd[:n]
                 # the mesh engine also writes the depth lists of [d0, d1)
-                rd_kw = (dict(rd_out=(rd_mq, rd_hi, rd_lo)) if mesh_mode
-                         else {})
+                rd_kw = dict(rd_out=lists) if mesh_mode else {}
                 with phase("scan.device"):
                     dev = acc.run(chrom, jbatch, jelig, cfg, gate,
                                   lo=d0, hi=d1, base_tot_out=bt,
@@ -875,6 +944,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
             det.add_window(d0, d1, dense, ev, arr_d, bt)
         if last_pos >= 0:
             det.process(min(det.windows[-1]["hi"], last_pos - im + 1), L - 1)
+        if device_engine:
+            _release_free_heap()
         return True
 
     # chunk-level I/O–compute overlap: a daemon thread fetches chunk N+1
@@ -934,10 +1005,10 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
             elig = batch_all.keep & (batch_all.pos >= scan_start)
             span_end = batch_all.span_ref + batch_all.span_len
             if device_engine and not mesh_mode:
-                # the depth lists stay host-side on the torch engine
+                # the torch engine adds the chunk's spans into its lists
                 with phase("scan.accumulate"):
-                    _accumulate_rd_window(rd_mq, rd_hi, rd_lo, L, batch_all,
-                                          elig, cfg, t0, t1)
+                    lists.add_window(t0, t1, *_rd_window_spans(
+                        L, batch_all, elig, t0, t1), cfg.min_mapq)
         for d0 in range(t0, t1, D):
             d1 = min(d0 + D, t1)
             if n:
@@ -998,6 +1069,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                       for f0, f1, fb, fe, fs in fed]
         del creads
         batch_all = None
+        if device_engine:
+            _release_free_heap()
 
     while fed:
         if not drain_one():
@@ -1014,6 +1087,16 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         np.cumsum(rd_mq, out=rd_mq)
         np.cumsum(rd_hi, out=rd_hi)
         np.cumsum(rd_lo, out=rd_lo)
+    if lists is not None:
+        # the scan's chunks, batches and deposits are gone: the stages
+        # after it read the lists on the host, as the host engine's
+        if lists.device.type == "cuda":
+            import torch
+            DEPTH_LISTS[-1]["card_peak_scan"] = \
+                torch.cuda.max_memory_allocated(lists.device)
+        with phase("scan.rd_to_host"):
+            rd_mq, rd_hi, rd_lo = lists.to_host()
+        lists = None
 
     arr_fin = _rd_only_arrays(L, rd_mq, rd_hi, rd_lo)
     # hand ownership of the depth lists to arr_fin: the CNV stage releases

@@ -155,13 +155,15 @@ class SpanIndex:
                 (t_off + delta)[keep], t_len[keep])
 
 
-def pack_arrays(arrays: dict, dtypes: dict, device) -> dict:
+def pack_arrays(arrays: dict, dtypes: dict, device, pin: bool = True) -> dict:
     """Views on ``device``, keyed as ``dtypes`` (name -> torch dtype), of
     the numpy ``arrays`` (1-D, any numeric or bool dtype): packed into one
     host buffer at 16-byte aligned offsets and uploaded in one copy. For a
-    CUDA device the host buffer is pinned and the copy is not waited for:
-    torch's caching host allocator hands the pinned block out again only
-    once the copy out of it has finished."""
+    CUDA device the host buffer is pinned (unless ``pin`` is False) and
+    the copy is not waited for: torch's caching host allocator hands the
+    pinned block out again only once the copy out of it has finished, and
+    keeps it, resident, for the next request of its size class. Unpinned,
+    the copy has finished when this returns and the buffer is freed."""
     dev = torch.device(device)
     offs, total = [], 0
     for name, dt in dtypes.items():
@@ -170,7 +172,7 @@ def pack_arrays(arrays: dict, dtypes: dict, device) -> dict:
         total += -(-n // 16) * 16
     total = max(total, 16)
     host = torch.empty(total, dtype=torch.uint8,
-                       pin_memory=dev.type == "cuda")
+                       pin_memory=pin and dev.type == "cuda")
     hb = host.numpy()
     for name, off, n in offs:
         np_dt = np.dtype(str(dtypes[name]).replace("torch.", ""))

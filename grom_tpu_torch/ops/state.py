@@ -19,6 +19,8 @@ the same values) go through these converters:
 * ``sv_tables`` / ``sv_entries``: the SV scorer's binomial tables and etype
   index tables, and one window's entry arrays in one int64 [9, n] upload,
   for ``sv_score``;
+* ``DepthLists``: a chromosome's caf_rd_* depth lists on a device engine's
+  device through the scan stage, handed to the host once it ends;
 * ``to_device``: any numpy array as a contiguous tensor on a device.
 """
 
@@ -139,10 +141,12 @@ def z_inputs(depth, mq, gc, low_acgt, lo: int, hi: int, device) -> ZInputs:
 def span_inputs(batch, eligible: np.ndarray, device) -> Spans:
     """The batch's M-spans (start, length, read) and its reads' mapq and
     eligibility as ``rd_scatter`` inputs on ``device``, in one upload
-    (``pack_arrays``: pinned and not waited for on a CUDA device)."""
+    (``pack_arrays``) from pageable memory: once a run, so a pinned block
+    (an ingest chunk's spans, 128 MiB at 30x) would only stay cached, and
+    resident, through the scan."""
     return Spans(**pack_arrays(dict(
         ref=batch.span_ref, len=batch.span_len, read=batch.span_read,
-        mapq=batch.mapq, elig=eligible), SPAN_DTYPES, device))
+        mapq=batch.mapq, elig=eligible), SPAN_DTYPES, device, pin=False))
 
 
 def cell_deltas(d_pos: np.ndarray, d_mq: np.ndarray, d_hi: np.ndarray,
@@ -187,3 +191,79 @@ def sv_entries(arrays, device) -> torch.Tensor:
         with torch.cuda.device(dev):
             return host.to(dev, non_blocking=True)
     return host.to(dev)
+
+
+# positions a block of ``DepthLists.to_host`` carries: its pinned staging
+# buffer is 12 bytes a position (24 MiB), whatever the chromosome's length
+RD_DOWNLOAD_BLOCK = 1 << 21
+
+
+class DepthLists:
+    """A chromosome's three caf_rd_* depth lists (rd_mq, rd_hi, rd_lo) as
+    int32 rows [3, L] on ``device``: where a device engine builds them
+    through the scan stage, so the host holds no list of the chromosome's
+    length until the scan ends. ``add_window`` adds an ingest chunk's
+    spans (the torch engine), the mesh engine writes its cells' rows into
+    ``rows``; ``to_host`` then gives the stages after the scan the three
+    host arrays the host engine builds."""
+
+    def __init__(self, L: int, device):
+        self.L = L
+        self.device = torch.device(device)
+        self.rows = torch.zeros((3, L), dtype=torch.int32, device=self.device)
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows.numel() * self.rows.element_size()
+
+    def add_window(self, lo: int, hi: int, starts: np.ndarray,
+                   ends: np.ndarray, mapq: np.ndarray, min_mapq: int) -> None:
+        """Add the depth of spans [starts, ends) (relative to ``lo``, within
+        [0, hi - lo]) with their reads' ``mapq`` into [lo, hi) of each list:
+        mapq into rd_mq, one into rd_hi (mapq >= ``min_mapq``) or rd_lo.
+        The endpoint counts are summed and prefix-summed in int64 on the
+        device (integers, so exact in any order) and added into the rows
+        as int32, as ``driver._accumulate_rd_window`` adds its f64 counts
+        into host lists."""
+        n = hi - lo
+        if not len(starts) or n <= 0:
+            return
+        dev = self.device
+        i64 = torch.int64
+        s = torch.from_numpy(np.ascontiguousarray(starts, np.int32)).to(dev)
+        e = torch.from_numpy(np.ascontiguousarray(ends, np.int32)).to(dev)
+        mq = torch.from_numpy(np.ascontiguousarray(mapq, np.int32)).to(dev)
+        w = torch.empty((3, len(mq)), dtype=i64, device=dev)
+        w[0] = mq
+        torch.ge(mq, min_mapq, out=w[1])
+        torch.sub(1, w[1], out=w[2])
+        d = torch.zeros((3, n + 1), dtype=i64, device=dev)
+        d.index_add_(1, s.to(i64), w)
+        d.index_add_(1, e.to(i64), w, alpha=-1)
+        d.cumsum_(1)
+        self.rows[:, lo:hi] += d[:, :n].to(torch.int32)
+
+    def to_host(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(rd_mq, rd_hi, rd_lo) as three int32 [L] host arrays, copied
+        ``RD_DOWNLOAD_BLOCK`` positions at a time through one staging
+        buffer (pinned on a CUDA device): never through a pinned block of
+        the whole length, which torch's caching host allocator would keep,
+        and keep resident, after the copy."""
+        L = self.L
+        out = tuple(np.empty(L, np.int32) for _ in range(3))
+        B = max(min(RD_DOWNLOAD_BLOCK, L), 1)
+        cuda = self.device.type == "cuda"
+        stage = torch.empty(3 * B, dtype=torch.int32, pin_memory=cuda)
+        sb = stage.numpy()
+        with torch.cuda.device(self.device) if cuda else \
+                contextlib.nullcontext():
+            for b0 in range(0, L, B):
+                k = min(B, L - b0)
+                for r in range(3):
+                    stage[r * k:(r + 1) * k].copy_(self.rows[r, b0:b0 + k],
+                                                   non_blocking=cuda)
+                if cuda:
+                    torch.cuda.current_stream().synchronize()
+                for r in range(3):
+                    out[r][b0:b0 + k] = sb[r * k:(r + 1) * k]
+        return out

@@ -40,7 +40,7 @@ tests hold K5 to.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -52,7 +52,7 @@ from grom_tpu_torch.ops.accumulate import (SpanIndex, merge_cands,
                                             result_header, result_rows,
                                             screen_threshold, tile_inputs,
                                             unpack_rows)
-from grom_tpu_torch.ops.state import span_inputs
+from grom_tpu_torch.ops.state import DepthLists, span_inputs
 from grom_tpu_torch.parallel.mesh import (Mesh, current_group, make_mesh,
                                           visible_cuda_devices)
 from grom_tpu_torch.utils.timing import phase
@@ -207,13 +207,15 @@ class MeshAccumulator:
     def run(self, chrom: np.ndarray, batch, eligible: np.ndarray, cfg,
             gate: np.ndarray, lo: int = 0, hi: int = 0,
             base_tot_out: Optional[np.ndarray] = None,
-            rd_out: Optional[Tuple[np.ndarray, np.ndarray,
-                                   np.ndarray]] = None,
-            gate_base: int = 0, base_tot_base: int = 0):
+            rd_out=None, gate_base: int = 0, base_tot_base: int = 0):
         """``lo``/``hi`` restrict processing to a position range;
         ``base_tot_out``/``rd_out`` receive base_tot and the depth lists in
-        place. ``gate``/``base_tot_out`` may be chunk-local arrays whose
-        index 0 is ``gate_base``/``base_tot_base``."""
+        place. ``rd_out`` is three host arrays (rd_mq, rd_hi, rd_lo), or
+        ``ops/state.py DepthLists``, whose rows on the card each launch's
+        depth is copied into there, with no copy to the host (returned in
+        the place of the three arrays). ``gate``/``base_tot_out`` may be
+        chunk-local arrays whose index 0 is
+        ``gate_base``/``base_tot_base``."""
         reads = batch.reads
         if reads.name_id is None or reads.name_len is None:
             raise ValueError("the mesh accumulator needs read-name ids: "
@@ -255,7 +257,10 @@ class MeshAccumulator:
 
         base_tot = (base_tot_out if base_tot_out is not None
                     else np.zeros(L, np.int64))
-        if rd_out is not None:
+        lists = rd_out if isinstance(rd_out, DepthLists) else None
+        if lists is not None:
+            rd_mq = rd_hi = rd_lo = None
+        elif rd_out is not None:
             rd_mq, rd_hi, rd_lo = rd_out
         else:
             rd_mq = np.zeros(L, np.int32)
@@ -275,19 +280,25 @@ class MeshAccumulator:
                 bt, rd, cands = self._launch(r, r - g0, launch, prep, outs,
                                              runs)
                 with phase("mesh.copy_out"):
+                    # the launch's cells are consecutive, and all but the
+                    # range's last are seg_l wide: its depth is one block
+                    a, b = launch[0][0], launch[-1][1]
+                    block = rd[:len(launch)].transpose(0, 1).reshape(
+                        3, -1)[:, :b - a]
+                    if lists is not None:
+                        lists.rows[:, a:b].copy_(block)
+                    else:
+                        rd_mq[a:b], rd_hi[a:b], rd_lo[a:b] = \
+                            block.cpu().numpy()
                     for i, (t0, t1) in enumerate(launch):
-                        w = t1 - t0
                         base_tot[t0 - base_tot_base:
-                                 t1 - base_tot_base] = bt[i, :w]
-                        rd_mq[t0:t1] = rd[i, 0, :w]
-                        rd_hi[t0:t1] = rd[i, 1, :w]
-                        rd_lo[t0:t1] = rd[i, 2, :w]
+                                 t1 - base_tot_base] = bt[i, :t1 - t0]
                         if cands[i] is not None:
                             cand_parts.append(cands[i])
         with phase("mesh.hist"):
             hist = self._hist(runs)
         return base_tot, merge_cands(cand_parts), \
-            (rd_mq, rd_hi, rd_lo), hist
+            lists if lists is not None else (rd_mq, rd_hi, rd_lo), hist
 
     def _launch_totals(self, rr: int, outs: dict, runs) -> None:
         """Sets each lane run's ``launch_tot`` to the totals [n_cells_launch,
@@ -370,7 +381,7 @@ class MeshAccumulator:
         i32 = torch.int32
         k0 = m.first_cell
         bt_all = self._gather(outs["bt"]).cpu().numpy()
-        rd_all = self._gather(outs["rd"]).cpu().numpy()
+        rd_all = self._gather(outs["rd"])
 
         # ---- candidates: counts, then rows padded to the largest -------
         counts = [read_header(h)[1]

@@ -9,6 +9,9 @@
   its parent's across the exec.
 * Card: ``torch.cuda.max_memory_allocated`` and ``max_memory_reserved`` of
   the run's CUDA devices (the largest over them); None on the CPU.
+* Pinned host memory (``pinned_host``): the bytes of the pinned blocks
+  torch's caching host allocator holds (handed out or cached: resident
+  host memory), now and at peak; None on the CPU.
 
 :func:`report` gives both as one JSON-ready dict, which the driver prints
 as a ``peak_memory {...}`` line under GROM_TPU_TIMING=1.
@@ -132,6 +135,21 @@ def card_peak(devices: Iterable = ()) -> Optional[dict]:
             "max_reserved": max(torch.cuda.max_memory_reserved(d)
                                 for d in cuda),
             "devices": [str(d) for d in cuda]}
+
+
+def pinned_host(devices: Iterable = ()) -> Optional[dict]:
+    """``allocated_bytes`` (current, peak) of torch's caching host
+    allocator, whose pinned blocks stay resident while it caches them;
+    None when no entry of ``devices`` is a CUDA device, without importing
+    torch, or when no CUDA context exists."""
+    if not any(str(d).startswith("cuda") for d in devices):
+        return None
+    import torch
+    if not torch.cuda.is_initialized():
+        return None
+    st = torch.cuda.host_memory_stats()
+    return {"current": st.get("allocated_bytes.current"),
+            "peak": st.get("allocated_bytes.peak")}
 
 
 def report(devices: Iterable = ()) -> dict:

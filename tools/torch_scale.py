@@ -46,6 +46,16 @@ kernels. ``--length`` cuts the chromosome (planted features past the cut
 are dropped), never below 135,000,000 bases: below 134,217,728 the
 default ingest chunk is no longer 16 Mi.
 
+``--memprof`` runs each CLI under ``tools/memprof.py`` (its peak RSS
+split into anonymous, shm, BAM and other file-backed pages at each
+process's peak; the per-second CSV goes to build/torch_scale/) and keeps
+its line as the record's ``memprof``. ``--probe`` runs each CLI through
+``tools/peak_probe.py`` (numpy's live blocks, torch's pinned host memory
+and the smaps split at the peak and at the end of the scan stage) and
+keeps its line as ``peak_probe`` (``--probe-args`` passes it options,
+e.g. ``"--numpy"``); the probe costs time of its own, so its runs' walls
+are not comparable with others'.
+
 ``--repos A,B`` runs the host run from the last checkout first (the
 reference), then from each other checkout (held byte for byte to the
 reference, and to no RSS rule), then each device run from each checkout
@@ -166,6 +176,7 @@ def parse_stderr(err: str) -> dict:
     run's stderr."""
     out = {"phases": {}, "launches": None, "peak_memory": None, "jobs": [],
            "phase_rss_kib": {}}
+    probe = None
     in_table = False
     for ln in err.splitlines():
         m = re.match(r"^(\S+)\s+([\d.]+)s\s", ln) if in_table else None
@@ -179,6 +190,10 @@ def parse_stderr(err: str) -> dict:
             out["peak_memory"] = json.loads(ln.split(" ", 1)[1])
         elif ln.startswith("parallel_job {"):
             out["jobs"].append(json.loads(ln.split(" ", 1)[1]))
+        elif ln.startswith("peak_probe {"):
+            probe = json.loads(ln.split(" ", 1)[1])
+    if probe is not None:
+        out["peak_probe"] = probe
     rss = (out["peak_memory"] or {}).get("phase_rss_kib") or {}
     if out["jobs"]:
         # a -P run's phases are its workers'
@@ -202,10 +217,13 @@ def rss_peak_kib(rec: dict):
 
 
 def run_one(name: str, fa: str, bam: str, repo: str = REPO,
-            tag: str = "") -> dict:
+            tag: str = "", memprof: bool = False,
+            probe=None) -> dict:
     """One run of the checkout ``repo`` in a fresh process; returns its
     record (``rc`` non-zero and the end of its stderr when it failed). Its
-    files are named ``<tag><name>``."""
+    files are named ``<tag><name>``. ``memprof``: under tools/memprof.py;
+    ``probe`` (a list of its options, maybe empty): through
+    tools/peak_probe.py (both this checkout's)."""
     engine, env_extra, flags = RUNS[name]
     vcf = os.path.join(OUT, "%s%s.vcf" % (tag, name))
     env = dict(os.environ, GROM_TPU_TIMING="1", GROM_TPU_TORCH_ENGINE=engine,
@@ -220,19 +238,31 @@ def run_one(name: str, fa: str, bam: str, repo: str = REPO,
         env["CUDA_VISIBLE_DEVICES"] = visible or "0"
     rec = {"run": name, "repo": os.path.relpath(repo, REPO),
            "engine": engine, "env": env_extra, "flags": flags}
+    tools = os.path.join(REPO, "tools")
+    cmd = [sys.executable] + (
+        [os.path.join(tools, "peak_probe.py"), *probe, "--"]
+        if probe is not None else ["-m", "grom_tpu_torch"]) + ["-i", bam, "-r", fa, "-o", vcf,
+                                          *flags]
+    if memprof:
+        cmd = [sys.executable, os.path.join(tools, "memprof.py"),
+               "--tag", "bam=" + bam, "--csv",
+               os.path.join(OUT, "%s%s.memprof.csv" % (tag, name)),
+               "--", *cmd]
     t0 = time.perf_counter()
+    out = ""
     try:
-        r = subprocess.run([sys.executable, "-m", "grom_tpu_torch", "-i", bam,
-                            "-r", fa, "-o", vcf, *flags], cwd=repo, env=env,
-                           capture_output=True, text=True,
-                           timeout=RUN_TIMEOUT_S)
-        rc, err = r.returncode, r.stderr
+        r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                           text=True, timeout=RUN_TIMEOUT_S)
+        rc, err, out = r.returncode, r.stderr, r.stdout
     except subprocess.TimeoutExpired as exc:
         rc = 124
         err = exc.stderr.decode() if isinstance(exc.stderr, bytes) else (
             exc.stderr or "")
     rec["wall_s"] = time.perf_counter() - t0
     rec["rc"] = rc
+    if memprof:
+        last = [ln for ln in out.splitlines() if ln.startswith('{"rc"')]
+        rec["memprof"] = json.loads(last[-1]) if last else None
     with open(os.path.join(OUT, "%s%s.stderr" % (tag, name)), "w") as f:
         f.write(err)
     rec.update(parse_stderr(err))
@@ -299,6 +329,14 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", default=",".join(DEFAULT_RUNS),
                     help="comma-separated subset of %s" % ",".join(RUNS))
     ap.add_argument("--length", type=int, default=DATASET["length"])
+    ap.add_argument("--memprof", action="store_true",
+                    help="run each CLI under tools/memprof.py")
+    ap.add_argument("--probe", action="store_true",
+                    help="run each CLI through tools/peak_probe.py")
+    ap.add_argument("--probe-args", default="",
+                    help="options for tools/peak_probe.py, space-separated")
+    ap.add_argument("--tag", default="",
+                    help="a prefix for the runs' file names")
     ap.add_argument("--repos", default=".",
                     help="comma-separated checkouts, relative to the repo; "
                          "the reference host run is the last one's")
@@ -328,13 +366,14 @@ def main(argv=None) -> int:
         smi = None
     os.makedirs(OUT, exist_ok=True)
     fa, bam = dataset(a.length)
-    tags = {r: "" if len(repos) == 1 else "%s." % (
-        "this" if r == REPO else os.path.basename(r)) for r in repos}
+    tags = {r: a.tag + ("" if len(repos) == 1 else "%s." % (
+        "this" if r == REPO else os.path.basename(r))) for r in repos}
+    probe = a.probe_args.split() if a.probe else None
     todo = ([("host", repos[-1])] + [("host", r) for r in repos[:-1]]
             + [(n, r) for n in runs[1:] for r in repos])
     records, ok, ref = [], True, None
     for name, repo in todo:
-        rec = run_one(name, fa, bam, repo, tags[repo])
+        rec = run_one(name, fa, bam, repo, tags[repo], a.memprof, probe)
         if rec["rc"] != 0:
             rec["problems"] = ["exited %d" % rec["rc"]]
         elif ref is None:
