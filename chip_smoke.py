@@ -41,7 +41,7 @@ non-zero without its result line:
    group (its collectives are real NCCL calls on the card), on the 1x1
    grid of one card, byte-identical to phase 5's host output; the launch
    counts (the tile kernel and K6 at least once per cell, K5 at least once
-   per ``MeshAccumulator.run``), its ``scan.device`` in parts (the
+   per ``MeshAccumulator.launch``), its ``scan.device`` in parts (the
    ``mesh.*`` labels), its ``cnv.zscores_dev``, ``cnv.nullmodel_dev`` and
    ``call.sv_detect``, and summed card times of that run; then the depth
    and SV kernels against their plain versions, bitwise and timed, and the
@@ -57,13 +57,19 @@ non-zero without its result line:
    torch path, a tile launch at least per 2^18 bases of each
    chromosome); then ``-P 2 -R 1`` on a 2.6 Mb
    chromosome at 30x (three region jobs), card against host;
-8. the default geometry of a human chromosome (16 Mi ingest chunks, 4 Mi
-   detect sub-chunks, which a chromosome gets from 134,217,728 bases on)
-   on phase 5's 24 Mb dataset: ``python -m grom_tpu_torch`` on the torch
-   and mesh engines in fresh processes with GROM_TPU_CHUNK_BASES and
+8. the host engine's default geometry of a human chromosome (16 Mi
+   ingest chunks, 4 Mi detect sub-chunks, which a chromosome gets from
+   134,217,728 bases on; the device engines' default chunk is 8 Mi)
+   on phase 5's 24 Mb dataset: ``python -m grom_tpu_torch`` on the host,
+   torch and mesh engines in fresh processes with GROM_TPU_CHUNK_BASES and
    GROM_TPU_DETECT_BASES set (two ingest chunks, the first cut into four
    sub-chunks), VCF and .ctx.vcf byte-identical to phase 5's host output;
-   each run's launches (every kernel of its path), its ``peak_memory``
+   each run's peak host RSS split into anonymous pages, the BAM's mapping
+   and other files (``/proc/self/smaps`` at the sampled reading nearest
+   the peak, ``rss_split``) and, on the device engines, the card bytes the
+   queued jobs' inputs held at most (``peak_memory``'s ``queued_jobs``):
+   it fails when a reading is missing;
+   each device run's launches (every kernel of its path), its ``peak_memory``
    line (peak host RSS with its label, peak card memory) and, on the mesh
    engine, K5's largest run (spans and cells); where the run's depth
    lists lived through the scan (the ``peak_memory`` line's
@@ -197,9 +203,6 @@ POLICY = [("torch", {"GROM_TPU_DEVICE_CNV": "0"}),
           ("mesh", {"GROM_TPU_DEVICE_CNV": "0"}),
           ("host", {"GROM_TPU_DEVICE_CNV": "1", "GROM_TPU_DEVICE_SV": "1"})]
 CNV_PATH = ("zscores", "seed_eval", "null_model")
-
-# phase 5's host run (``run_child``), whose peaks phase 8 prints
-HOST_RUN: dict = {}
 
 
 def say(*a) -> None:
@@ -573,7 +576,8 @@ def bound(name, args, out):
         # reading it would add a sync to the timed run)
         from grom_tpu_torch.ops.accumulate import result_len
         nb = (_nbytes([v for k, v in t._asdict().items()
-                       if k not in ("seq", "qual")]) + 2 * ev
+                       if k not in ("seq", "qual")]) + _nbytes(args[1])
+              + 2 * ev
               + (_nbytes(out) if isinstance(out, tuple)
                  else 4 * result_len(L, 0)))
         ops, rate = 8 * ev, F32_OPS_S
@@ -946,9 +950,9 @@ def phase_real_size() -> dict:
     args = bulk_args()
     host_vcf = os.path.join(OUT, "bulk.host.vcf")
     dev_vcf = os.path.join(OUT, "bulk.torch.vcf")
-    HOST_RUN.update(run_child(args + ["-o", host_vcf], "host", {}))
-    t_host = HOST_RUN["wall_s"]
-    if HOST_RUN["modules"]["torch"]:
+    host_run = run_child(args + ["-o", host_vcf], "host", {})
+    t_host = host_run["wall_s"]
+    if host_run["modules"]["torch"]:
         raise AssertionError("the host engine's run loaded torch")
     say("host engine run (a fresh process): torch not loaded")
 
@@ -1036,6 +1040,7 @@ def check_adversarial(rec: Recorder) -> None:
     say("largest tile %s: passes %s ms" % (
         rec.best["tile_accumulate"][0], json.dumps(
             accumulate.tile_pass_ms(*tile_args))))
+    gate = accumulate.tile_gate
     p = dict(thr=accumulate.screen_threshold(PARAMS["min_ratio"]),
              min_mapq=PARAMS["min_mapq"], min_bq=PARAMS["min_bq"],
              min_snv=PARAMS["min_snv"], name_len_cap=PARAMS["name_len_cap"])
@@ -1043,9 +1048,11 @@ def check_adversarial(rec: Recorder) -> None:
                                              False)):
         arrays, _ = spike_tile(0, mm)
         t = accumulate.pack_tile(arrays, "cuda")
-        got = accumulate.tile_kernel(t, **p)
-        want = accumulate.tile_kernel_plain(accumulate.pack_tile(arrays,
-                                                                 "cpu"), **p)
+        g = gate(arrays["gate"], "cuda")
+        got = accumulate.tile_kernel(t, g, **p)
+        want = accumulate.tile_kernel_plain(
+            accumulate.pack_tile(arrays, "cpu"), gate(arrays["gate"], "cpu"),
+            **p)
         _diff(got, want, exact=True)
         if (got[1] > 2000) != mm or (mm and got[2]["pos"].numel() < 6):
             raise AssertionError("%s: %d mismatch events, %d candidates"
@@ -1054,7 +1061,7 @@ def check_adversarial(rec: Recorder) -> None:
             "candidates): equal to the plain version; passes %s ms"
             % (label, t.chrom_up.shape[0], t.n_events, got[1],
                got[2]["pos"].numel(), json.dumps(accumulate.tile_pass_ms(
-                   t, **p))))
+                   t, g, **p))))
     z, gate, seg, minw, maxw = rec.best["null_model"][1]
     say("largest null model (%d segments, batches of %d): passes %s ms"
         % (len(seg.s), cnv_device.NULL_BATCH, json.dumps(
@@ -1150,19 +1157,19 @@ def phase_real_size_mesh() -> dict:
         timing.timing_enable(True)
         timing.reset()
         runs = []
-        mesh_run = MeshAccumulator.run
+        mesh_launch = MeshAccumulator.launch
 
-        def counted(self, *a, **kw):
-            runs.append(kw.get("hi", 0) - kw.get("lo", 0))
-            return mesh_run(self, *a, **kw)
-        MeshAccumulator.run = counted
+        def counted(self, job, *a, **kw):
+            runs.append(job.hi - job.lo)
+            return mesh_launch(self, job, *a, **kw)
+        MeshAccumulator.launch = counted
         try:
             with Recorder() as rec, card_profile() as prof:
                 _build.reset_launches()
                 t_mesh = run_cli(args + ["-o", mesh_vcf], "mesh")
                 launches = dict(_build.LAUNCHES)
         finally:
-            MeshAccumulator.run = mesh_run
+            MeshAccumulator.launch = mesh_launch
         snap = timing.report(file=io.StringIO())
         timing.timing_enable(False)
         card = device_times(prof)
@@ -1170,7 +1177,7 @@ def phase_real_size_mesh() -> dict:
         say("VCF and .ctx.vcf byte-identical to the host engine's; mesh "
             "engine %.2f s on a %dx%d grid" % ((t_mesh,) + mesh.shape))
         say("launches in the mesh run:", json.dumps(launches),
-            "in %d MeshAccumulator.run calls" % len(runs))
+            "in %d MeshAccumulator.launch calls" % len(runs))
         # scan.device of the mesh run in parts (host wall seconds, summed
         # over the run; the labels of parallel/pipeline.py)
         say("phases of the mesh run: scan.device %.3f s; in it: %s" % (
@@ -1448,8 +1455,8 @@ def run_child(argv, engine_name: str, env_extra: dict) -> dict:
             out["phases"][row.group(1)] = float(row.group(2))
             continue
         key, _, rest = ln.partition(" ")
-        if key in ("launches", "peak_memory", "k5_largest", "modules") and \
-                rest.startswith("{"):
+        if key in ("launches", "peak_memory", "k5_largest", "modules",
+                   "rss_split") and rest.startswith("{"):
             out[key] = json.loads(rest)
     for key in ("launches", "peak_memory", "modules"):
         if key not in out:
@@ -1458,15 +1465,69 @@ def run_child(argv, engine_name: str, env_extra: dict) -> dict:
     return out
 
 
+class SplitWatch:
+    """A daemon thread that reads this process's resident set size
+    (``/proc/self/statm``) every 20 ms and, each time it has grown
+    ``STEP_KIB`` past the last split reading, takes one from
+    ``/proc/self/smaps``: KiB of anonymous pages, of the BAM's mapping and
+    of other files (``tools/rss_baseline.py smaps_by_file``). The last is
+    the reading nearest the peak, within one step."""
+
+    STEP_KIB = 64 << 10
+
+    def __init__(self, bam: str):
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        import threading
+
+        from rss_baseline import smaps_by_file
+        self.split = smaps_by_file
+        self.bam = os.path.realpath(bam)
+        self.best = None
+        self.readings = 0
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.loop, daemon=True,
+                                       name="rss-split")
+        self.thread.start()
+
+    @staticmethod
+    def rss_kib() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") \
+                // 1024
+
+    def loop(self) -> None:
+        while not self.stop.wait(0.02):
+            kib = self.rss_kib()
+            if self.best is not None and kib < self.best["rss_kib"] + \
+                    self.STEP_KIB:
+                continue
+            with open("/proc/self/smaps") as f:
+                by = self.split(f.read())
+            bam = sum(v[0] for k, v in by["file"].items()
+                      if os.path.realpath(k) == self.bam)
+            files = sum(v[0] for v in by["file"].values()) - bam
+            self.readings += 1
+            self.best = {"rss_kib": kib, "anon_kib": by["anon_kib"],
+                         "bam_kib": bam, "file_kib": files}
+
+    def result(self) -> dict:
+        self.stop.set()
+        self.thread.join()
+        return dict(self.best or {}, readings=self.readings)
+
+
 def cli_child(argv) -> int:
     """``python chip_smoke.py --cli-child <CLI arguments>``: the port's CLI
     (``cli.main``, as ``python -m grom_tpu_torch`` runs it) in this fresh
     process, with K5's largest call (the most spans; its cells) printed as
     a ``k5_largest {...}`` line on stderr when the run made one, and at
-    its end a ``modules {"torch": ...}`` line: whether the run loaded
-    torch. Only a mesh-engine run imports torch here: a host-engine run's
-    memory and modules are the CLI's own."""
+    its end a ``rss_split {...}`` line (``SplitWatch``: the peak host RSS
+    split into anonymous pages, the BAM's mapping and other files) and a
+    ``modules {"torch": ...}`` line: whether the run loaded torch. Only a
+    mesh-engine run imports torch here: a host-engine run's memory and
+    modules are the CLI's own."""
     sys.path.insert(0, REPO)
+    watch = SplitWatch(argv[argv.index("-i") + 1])
     from grom_tpu_torch import cli
     largest = {}
     if os.environ.get("GROM_TPU_TORCH_ENGINE") == "mesh":
@@ -1486,28 +1547,54 @@ def cli_child(argv) -> int:
     if largest:
         print("k5_largest " + json.dumps(largest), file=sys.stderr,
               flush=True)
+    print("rss_split " + json.dumps(watch.result()), file=sys.stderr,
+          flush=True)
     print("modules " + json.dumps({"torch": "torch" in sys.modules}),
           file=sys.stderr, flush=True)
     return rc
 
 
 def phase_wide_chunks() -> None:
-    """Phase 5's chromosome at a human chromosome's ingest geometry, torch
-    and mesh engines in fresh processes, against phase 5's host output."""
+    """Phase 5's chromosome at a human chromosome's ingest geometry, host,
+    torch and mesh engines in fresh processes, against phase 5's host
+    output."""
     say("== 8. 16 Mi ingest chunks, 4 Mi detect sub-chunks: %d Mb at %gx "
-        "on the torch and mesh engines" % (BULK["length"] // 10**6,
-                                           BULK["coverage"]))
+        "on the host, torch and mesh engines" % (BULK["length"] // 10**6,
+                                                 BULK["coverage"]))
     args = bulk_args()
     host_vcf = os.path.join(OUT, "bulk.host.vcf")
     tiles = math.ceil(BULK["length"] / (1 << 18))
     subchunks = sum(math.ceil((min(t0 + (16 << 20), BULK["length"]) - t0)
                               / (4 << 20))
                     for t0 in range(0, BULK["length"], 16 << 20))
-    peaks = {"host": HOST_RUN["peak_memory"]}
-    for name in ("torch", "mesh"):
+    peaks = {}
+    for name in ("host", "torch", "mesh"):
         vcf = os.path.join(OUT, "bulk.wide.%s.vcf" % name)
         res = run_child(args + ["-o", vcf], name, WIDE)
         same_files(vcf, host_vcf)
+        mem = res["peak_memory"]
+        split = res.get("rss_split") or {}
+        if not split.get("anon_kib") or mem.get("rss_peak_kib") is None:
+            raise AssertionError("16 Mi %s run: no peak RSS or no split of "
+                                 "it: %s" % (name, split))
+        say("16 Mi %s run: peak RSS %.3f GiB (%s); at the split reading "
+            "nearest it (%.3f GiB, %d readings): anonymous %.3f, the BAM's "
+            "mapping %.3f, other files %.3f GiB"
+            % (name, mem["rss_peak_kib"] / 2**20, mem["rss_source"],
+               split["rss_kib"] / 2**20, split["readings"],
+               split["anon_kib"] / 2**20, split["bam_kib"] / 2**20,
+               split["file_kib"] / 2**20))
+        peaks[name] = mem
+        if name == "host":
+            if res["modules"]["torch"]:
+                raise AssertionError("16 Mi host run: torch was loaded")
+            say("16 Mi host run: VCF and .ctx.vcf byte-identical to phase "
+                "5's host output; %.2f s" % res["wall_s"])
+            continue
+        queued = mem.get("queued_jobs") or {}
+        if not queued.get("peak_bytes"):
+            raise AssertionError("16 Mi %s run: no card bytes of queued "
+                                 "jobs: %s" % (name, queued))
         launches = res["launches"]
         path = TORCH_PATH + (MESH_ONLY if name == "mesh" else ())
         for k in path:
@@ -1517,7 +1604,6 @@ def phase_wide_chunks() -> None:
         if launches["tile_accumulate"] < tiles:
             raise AssertionError("16 Mi %s run: %d tile launches < %d tiles"
                                  % (name, launches["tile_accumulate"], tiles))
-        mem = res["peak_memory"]
         card = mem["card"] or {}
         if not card.get("max_allocated"):
             raise AssertionError("16 Mi %s run: no peak card memory" % name)
@@ -1551,11 +1637,12 @@ def phase_wide_chunks() -> None:
             raise AssertionError("16 Mi %s run: no card peak at the scan's "
                                  "end" % name)
         say("16 Mi %s run: depth lists on %s through the scan, %.1f MiB of "
-            "card memory; card peak allocated %.1f MiB at the scan's end, "
+            "card memory; the queued jobs' inputs on the card at most "
+            "%.1f MiB; card peak allocated %.1f MiB at the scan's end, "
             "%.1f MiB over the run; pinned host memory of torch's host "
             "cache: peak %.1f MiB, %.1f MiB at the end"
             % (name, ",".join(where), lists["card_bytes"] / 2**20,
-               lists["card_peak_scan"] / 2**20,
+               queued["peak_bytes"] / 2**20, lists["card_peak_scan"] / 2**20,
                card["max_allocated"] / 2**20, pinned["peak"] / 2**20,
                (pinned.get("current") or 0) / 2**20))
         if name == "mesh":
@@ -1572,10 +1659,8 @@ def phase_wide_chunks() -> None:
             say("16 Mi mesh run: K5's largest run %d spans over %d cells of "
                 "%d positions (%d positions)" % (
                     k5["spans"], k5["cells"], k5["seg_l"], k5["positions"]))
-        peaks[name] = mem
     for name in ("host", "torch", "mesh"):
-        say_phase_peaks("16 Mi %s run" % name if name != "host" else
-                        "phase 5's host run (default geometry)", peaks[name])
+        say_phase_peaks("16 Mi %s run" % name, peaks[name])
 
 
 def phase_device_policy() -> None:

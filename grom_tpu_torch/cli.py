@@ -188,8 +188,9 @@ def _run_one_chromosome(args):
     (``rss_source``: ``vmhwm`` or ``sampled``), whether the worker has
     loaded torch (``torch_loaded``: a host-engine worker with no stage on
     the device loads none), the pinned host memory of torch's caching
-    host allocator (``pinned``) and where the job's depth lists lived
-    through the scan (``depth_lists``), and under
+    host allocator (``pinned``), where the job's depth lists lived
+    through the scan (``depth_lists``) and the device bytes its queued
+    device jobs' inputs held at most (``queued_jobs``), and under
     GROM_TPU_TIMING=1 the wall seconds of the job's timed phases
     (``phases``) and the worker's peak RSS at each one's last end
     (``phase_rss_kib``)."""
@@ -234,7 +235,8 @@ def _run_one_chromosome(args):
                "max_rss_kib": rss, "rss_source": source,
                "torch_loaded": "torch" in sys.modules,
                "pinned": peakmem.pinned_host([device]),
-               "depth_lists": driver.depth_lists_report()}
+               "depth_lists": driver.depth_lists_report(),
+               "queued_jobs": driver.queued_jobs_report()}
         if timing.timing_enabled():
             from grom_tpu_torch.driver import phase_rss_kib
             snap = timing.report(file=io.StringIO())

@@ -33,7 +33,6 @@ without a card raises, and so does the default engine choice.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import os
 import sys
@@ -163,12 +162,19 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
     prefetch: Dict[Tuple[int, int, int], object] = {}
     if streaming:
         header = bam_mod.read_bam_header(cfg.bam)
-        _start_first_chunk_prefetch(cfg, header, info, prefetch)
+        jobs = _chromosome_jobs(cfg, header, info)
+        # the prefetched chunk is the host engine's first: a device engine
+        # whose first chunk is capped below it would never take it
+        L0 = int(header.ref_lengths[jobs[0][0]]) if jobs else 0
+        if jobs and _chunk_bases(L0, engine in ("torch", "mesh"))[0] == \
+                _auto_chunk_bases(L0)[0]:
+            _start_first_chunk_prefetch(cfg, header, info, prefetch)
         with phase("ingest.insert_stats"):
             ins = _streaming_insert_stats(cfg, header)
     else:
         with phase("ingest.read_bam"):
             header, reads = bam_mod.read_bam(cfg.bam)
+        jobs = _chromosome_jobs(cfg, header, info)
         with phase("ingest.insert_stats"):
             ins = load_or_estimate(cfg.bam, reads, cfg)
     drv = DerivedConfig.from_insert_stats(cfg, ins.insert_mean, ins.insert_min,
@@ -192,17 +198,6 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
     writer = VcfWriter(cfg.out_vcf, cfg.ref_fasta, file_date, prelude=prelude)
     n_records = 0
     all_ctx: List[str] = []
-
-    # chromosome order: FASTA order; names lowercased in output like the
-    # reference's find_genome_length (src/GROM.c:1321-1428)
-    jobs = []
-    for refid, bam_name in enumerate(header.ref_names):
-        fa_name = fasta_mod.match_chromosome(bam_name, info.names)
-        if fa_name is None:
-            continue
-        if fasta_mod.is_chry(fa_name) and cfg.gender == 0:
-            continue  # chrY skipped for female (src/GROM.c:20979-20988)
-        jobs.append((refid, fa_name))
 
     for refid, fa_name, creads, sel, chrom in _chromosome_stream(
             cfg, header, info, jobs, reads, streaming):
@@ -275,13 +270,22 @@ def depth_lists_report() -> dict:
         "card_peak_scan": max(peaks) if peaks else None}
 
 
+def queued_jobs_report() -> dict:
+    """The most device bytes the inputs of this process's queued device
+    jobs held at once (``peak_bytes``: the largest ``queued_peak`` of the
+    streamed chromosomes' records; 0 on the host engine)."""
+    return {"peak_bytes": max((rec.get("queued_peak", 0)
+                               for rec in DEPTH_LISTS), default=0)}
+
+
 def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     """The run's kernel launches (``_build.LAUNCHES``) and its peak host and
     card memory (``utils/peakmem.py``), one JSON line each on stderr:
     ``launches {...}`` and ``peak_memory {...}``, the latter with the
     timed phases' peaks (``phase_rss_kib``), the pinned host memory of
-    torch's caching host allocator (``pinned``) and where the streamed
-    chromosomes' depth lists lived through the scan (``depth_lists``)."""
+    torch's caching host allocator (``pinned``), where the streamed
+    chromosomes' depth lists lived through the scan (``depth_lists``) and
+    the device bytes of their queued jobs' inputs (``queued_jobs``)."""
     import json
 
     from grom_tpu_torch import _build
@@ -299,6 +303,7 @@ def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     mem["phase_rss_kib"] = phase_rss_kib(snap)
     mem["pinned"] = peakmem.pinned_host(devices)
     mem["depth_lists"] = depth_lists_report()
+    mem["queued_jobs"] = queued_jobs_report()
     print("peak_memory " + json.dumps(mem), file=sys.stderr, flush=True)
 
 
@@ -437,6 +442,21 @@ def _auto_chunk_bases(L: int) -> Tuple[int, bool]:
     C = min(DEFAULT_CHUNK_BASES, max(1 << 20, L // 8))
     return C, C <= (2 << 20) < L
 
+
+
+def _chromosome_jobs(cfg: GromConfig, header, info) -> List[tuple]:
+    """(refid, FASTA name) of each chromosome to call, in the run's order:
+    FASTA order; names lowercased in output like the reference's
+    find_genome_length (src/GROM.c:1321-1428)."""
+    jobs = []
+    for refid, bam_name in enumerate(header.ref_names):
+        fa_name = fasta_mod.match_chromosome(bam_name, info.names)
+        if fa_name is None:
+            continue
+        if fasta_mod.is_chry(fa_name) and cfg.gender == 0:
+            continue  # chrY skipped for female (src/GROM.c:20979-20988)
+        jobs.append((refid, fa_name))
+    return jobs
 
 
 def _start_first_chunk_prefetch(cfg: GromConfig, header, info,
@@ -800,30 +820,23 @@ def _release_free_heap() -> None:
         trim(0)
 
 
-def _batch_for_range(batch, eligible: np.ndarray, lo: int, hi: int):
-    """(batch, eligible) cut to the reads with an M-span overlapping
-    [lo, hi), every span of theirs kept in its order, and their
-    eligibility: what a device job on [lo, hi) reads (``SpanIndex`` and
-    ``tile_inputs`` clip spans to the range; the mesh engine's depth
-    lists clip them too)."""
-    hit = (batch.span_ref < hi) & (batch.span_ref + batch.span_len > lo)
-    sel = np.unique(batch.span_read[hit])
-    R = len(batch.pos)
-    if len(sel) == R:
-        return batch, eligible
-    new_id = np.full(R, -1, np.int64)
-    new_id[sel] = np.arange(len(sel))
-    ids = new_id[batch.span_read]
-    ks = ids >= 0
-    per_read = {f.name: getattr(batch, f.name)[sel]
-                for f in dataclasses.fields(batch)
-                if not f.name.startswith("span_") and f.name != "reads"
-                and getattr(batch, f.name) is not None}
-    sub = dataclasses.replace(
-        batch, **per_read, span_read=ids[ks].astype(batch.span_read.dtype),
-        span_ref=batch.span_ref[ks], span_readoff=batch.span_readoff[ks],
-        span_len=batch.span_len[ks], reads=_subset_reads(batch.reads, sel))
-    return sub, eligible[sel]
+# A device engine's ingest chunk: at most half the host engine's default
+# (GROM_TPU_CHUNK_BASES overrides both). Its scan holds the chunk it works
+# on while the producer decodes the next one, and that fetch's decoded
+# parts, their concatenation and the ingest pool's buffers all grow with
+# the chunk: at 16 Mi they set its peak host memory, with torch's
+# libraries resident beside them. Its detect sub-chunks stay 4 Mi.
+DEVICE_CHUNK_BASES = 8 << 20
+
+
+def _chunk_bases(L: int, device_engine: bool) -> Tuple[int, bool]:
+    """``_auto_chunk_bases`` of the engine: a device engine's chunk capped
+    at ``DEVICE_CHUNK_BASES`` unless GROM_TPU_CHUNK_BASES sets it."""
+    C, force_async = _auto_chunk_bases(L)
+    env = os.environ.get("GROM_TPU_CHUNK_BASES", "")
+    if device_engine and not (env.isdigit() and int(env) > 0):
+        C = min(C, DEVICE_CHUNK_BASES)
+    return C, force_async
 
 
 def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
@@ -840,13 +853,17 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     O(ingest chunk) for reads plus O(detect chunk) for the dense evidence
     window, independent of chromosome length.
 
-    On the device engines every drained detect sub-chunk goes through
-    ``TorchAccumulator.run`` (torch: the tile kernel) or
-    ``MeshAccumulator.run`` (mesh: the tile kernel per cell, and the depth
-    lists); on the host engine through the native tally engine. The
-    device engines keep the depth lists on their device through the scan
-    (``ops/state.py DepthLists``) and copy them to the host once it has
-    ended. Returns
+    On the device engines each detect sub-chunk is a device job of
+    ``TorchAccumulator`` (torch: the tile kernel) or ``MeshAccumulator``
+    (mesh: the tile kernel per cell, and the depth lists): ``prepare``d
+    when the sub-chunk is fed, from one span index of its ingest chunk
+    (``chunk``), so that the queued job holds its inputs on the device and
+    no host read; ``launch``ed under the sub-chunk's gate once its deposits
+    have drained. An ingest chunk's reads are freed once its last
+    sub-chunk is fed. On the host engine the sub-chunks go through the
+    native tally engine. The device engines keep the depth lists on their
+    device through the scan (``ops/state.py DepthLists``) and copy them to
+    the host once it has ended. Returns
     None when the deposit ring rejects the data (freak CIGARs) — the caller
     redoes the chromosome via the whole-batch path on the same engine."""
     from grom_tpu_torch.call.deposits import DepositsSession
@@ -860,7 +877,7 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     if chunk_bases:
         C, force_async = chunk_bases, False
     else:
-        C, force_async = _auto_chunk_bases(L)
+        C, force_async = _chunk_bases(L, device_engine)
     l0 = scan_mod.window_len_l0(cfg, drv)
     scan_start = (2 * l0) // 4 + 1
     if region_start > 0:
@@ -890,13 +907,20 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         rd_hi = np.zeros(L, np.int32)
         rd_lo = np.zeros(L, np.int32)
         DEPTH_LISTS.append({"where": "host", "card_bytes": 0})
+    # the device bytes the inputs of the queued jobs (prepared when their
+    # detect sub-chunk is fed, not yet launched) hold now; the record keeps
+    # their most so far as ``queued_peak``
+    queued = 0
+    rec = DEPTH_LISTS[-1]
 
     det = _ChunkDetect(chrom, cfg, drv, mq_table, hez_table, scan_start,
                        engine=engine, device=sv_dev)
     scan_native = None     # host tally engine pinned on first chunk
     skipped = 0
     last_pos = -1
-    fed = []               # (d0, d1, batch, elig) fed but not yet drained
+    # (d0, d1, device job or None, host SNV band or None) fed but not yet
+    # drained
+    fed = []
     halo = dep.DRAIN_HALO
 
     def snv_chunk_arrays(d0, d1):
@@ -914,7 +938,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
 
     def drain_one():
         """Drain + queue the oldest fed sub-chunk; run its device job."""
-        d0, d1, jbatch, jelig, snv_src = fed.pop(0)
+        nonlocal queued
+        d0, d1, job, snv_src = fed.pop(0)
         res = dep.drain(d1)
         if res is None:
             return False
@@ -922,17 +947,17 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         n = d1 - d0
         if device_engine:
             bt = np.zeros(n, np.int64)
-            if jbatch is None:
+            if job is None:
                 dev = {"n": 0}
             else:
                 gate = dense.rd[:n].astype(np.int64) + dense.indel_sc_rd[:n]
                 # the mesh engine also writes the depth lists of [d0, d1)
                 rd_kw = dict(rd_out=lists) if mesh_mode else {}
-                with phase("scan.device"):
-                    dev = acc.run(chrom, jbatch, jelig, cfg, gate,
-                                  lo=d0, hi=d1, base_tot_out=bt,
-                                  gate_base=d0, base_tot_base=d0,
-                                  **rd_kw)[1]
+                with phase("scan.device"), phase("scan.device.launch"):
+                    dev = acc.launch(job, gate, base_tot_out=bt,
+                                     gate_base=d0, base_tot_base=d0,
+                                     **rd_kw)[1]
+                queued -= job.nbytes
             det.add_window(d0, d1, dense, ev, dev, bt)
         else:
             arr_d = snv_src
@@ -988,6 +1013,10 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         if isinstance(item, BaseException):
             raise item
         t0, t1, creads = item
+        if device_engine:
+            # the chunk's reads live as long as ``creads`` and its batch,
+            # not on into the wait for the next chunk
+            item = None
         n = len(creads.pos)
         with phase("batch.build"):
             batch_all = (build_batch(creads, refid, cfg.min_mapq,
@@ -1003,7 +1032,12 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
             skipped += int(np.searchsorted(creads.pos[i0:i1], scan_start,
                                            side="left"))
             elig = batch_all.keep & (batch_all.pos >= scan_start)
-            span_end = batch_all.span_ref + batch_all.span_len
+            if device_engine:
+                # one span index of the chunk for all its sub-chunks' jobs
+                with phase("scan.device"), phase("scan.device.chunk"):
+                    chunk = acc.chunk(batch_all, elig, t0, t1)
+            else:
+                span_end = batch_all.span_ref + batch_all.span_len
             if device_engine and not mesh_mode:
                 # the torch engine adds the chunk's spans into its lists
                 with phase("scan.accumulate"):
@@ -1011,6 +1045,7 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                         L, batch_all, elig, t0, t1), cfg.min_mapq)
         for d0 in range(t0, t1, D):
             d1 = min(d0 + D, t1)
+            job = None
             if n:
                 j0 = int(np.searchsorted(creads.pos, d0, side="left"))
                 j0 = max(j0, i0)
@@ -1023,7 +1058,16 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                 if j1 > j0:
                     last_pos = max(last_pos, int(creads.pos[j1 - 1]))
                 snv_src = None
-                if not device_engine:
+                if device_engine:
+                    # the sub-chunk's inputs go to the device now: the
+                    # queued job holds no host read
+                    with phase("scan.device"), \
+                            phase("scan.device.prepare"):
+                        job = acc.prepare(chrom, chunk, cfg, d0, d1)
+                    queued += job.nbytes
+                    rec["queued_peak"] = max(rec.get("queued_peak", 0),
+                                             queued)
+                else:
                     arr_d = snv_chunk_arrays(d0, d1)
                     smask = (batch_all.span_ref < d1) & (span_end > d0)
                     with phase("scan.accumulate"):
@@ -1045,30 +1089,22 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
                             scan_mod._accumulate_snv(arr_d, chrom, batch_all,
                                                      elig, cfg, lo=d0, hi=d1)
                     snv_src = arr_d
-                elig_keep = elig
             else:
                 snv_src = None if device_engine else snv_chunk_arrays(d0, d1)
-                elig_keep = None
-            # host engines never read the batch back out of the queue, so
-            # don't let a queued entry keep the previous ingest chunk's
-            # read tensors alive into the next chunk iteration
-            fed.append((d0, d1, batch_all if device_engine else None,
-                        elig_keep if device_engine else None, snv_src))
+            # no queued entry holds the ingest chunk's reads: a host engine
+            # never reads them back, a device job holds its inputs on the
+            # device
+            fed.append((d0, d1, job, snv_src))
             # drain with a one-sub-chunk lag: everything below the chunk
             # just fed is final (back-reach < D)
             while len(fed) > 1:
                 if not drain_one():
                     return None
-        # drop this chunk's decoded tensors NOW. The device path's queued
+        # drop this chunk's decoded tensors NOW: the device path's queued
         # job (the chunk's last sub-chunk, drained after the next chunk's
-        # first one is fed) keeps only the reads it reads: with the whole
-        # batch it would hold a second chunk of reads across the boundary
-        if device_engine and batch_all is not None:
-            fed[:] = [(f0, f1, *_batch_for_range(fb, fe, f0, f1), fs)
-                      if fb is batch_all else (f0, f1, fb, fe, fs)
-                      for f0, f1, fb, fe, fs in fed]
+        # first one is fed) holds its inputs on the device
         del creads
-        batch_all = None
+        batch_all = chunk = None
         if device_engine:
             _release_free_heap()
 

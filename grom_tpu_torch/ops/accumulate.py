@@ -5,20 +5,27 @@ The chromosome range of a detect sub-chunk is cut into 2^18-base position
 tiles; spans are clipped at tile edges on the host (``SpanIndex``), so every
 per-base statistic is tile-local. Each tile goes through one kernel:
 
-* ``tile_inputs`` packs a tile's sixteen arrays into one buffer (pinned for
-  a CUDA device) and uploads it in one copy; ``TileInputs`` holds views of
-  it.
-* ``tile_launch`` enqueues the tile and returns its packed result (header,
-  base_tot, candidate rows; ``HDR``/``REC``) without waiting: CUDA tensors
-  go to the hand-written kernel in ``csrc/tile_accumulate.cu``, CPU tensors
-  to ``tile_kernel_plain``, the same computation in plain torch.
+* ``tile_inputs`` packs a tile's fifteen arrays into one buffer (pinned
+  for a CUDA device) and uploads it in one copy; ``TileInputs`` holds views
+  of it. The tile's gate (``tile_gate``: positions whose depth lets a
+  candidate through) is not among them: it exists only once the detect
+  sub-chunk's deposits have drained, so it is uploaded apart, at launch.
+* ``tile_launch`` enqueues the tile with its gate and returns its packed
+  result (header, base_tot, candidate rows; ``HDR``/``REC``) without
+  waiting: CUDA tensors go to the hand-written kernel in
+  ``csrc/tile_accumulate.cu``, CPU tensors to ``tile_kernel_plain``, the
+  same computation in plain torch.
 * ``tile_kernel`` returns the unpacked result, as ``tile_kernel_plain``
   does, after one sync to read the header.
 * ``TorchAccumulator.run`` has the signature and return contract of
   grom_tpu's ``DeviceAccumulator.run``, so the SNV caller
-  (``call/snv.py candidates_from_device``) consumes its dict unchanged. Per
-  tile: one upload, one launch, one copy back of the header, base_tot and
-  the candidate rows, one sync.
+  (``call/snv.py candidates_from_device``) consumes its dict unchanged. It
+  is ``prepare`` (every tile's inputs uploaded, one upload a tile: a
+  ``TorchJob`` that holds only device tensors) then ``launch`` (the gate's
+  one upload, then per tile one launch, one copy back of the header,
+  base_tot and the candidate rows, one sync). The streamed driver prepares
+  a detect sub-chunk's job when it feeds the sub-chunk and launches it when
+  the sub-chunk drains, so a queued job holds no host reads.
 
 Tiles take runtime sizes: there are no padded buckets, no overflow ladder
 and no host fallback. The card bounds every buffer by sizes the host knows
@@ -57,7 +64,8 @@ K_GUESS = 4096        # candidate rows the first copy back of a tile brings
 
 class TileInputs(NamedTuple):
     """One tile's tensors at runtime sizes, all on one device (``pack_tile``
-    makes them views of one buffer).
+    makes them views of one buffer); the gate goes beside them
+    (``tile_gate``).
 
     Spans (S): ``span_read`` (tile-local read index), ``span_ref``
     (tile-local start), ``span_off`` (read-base offset), int32; ``cum``
@@ -65,7 +73,7 @@ class TileInputs(NamedTuple):
     u8, ``mapq`` u8, ``flag`` int32, ``lseq`` int32, ``seq_off`` int32
     (into ``seq``/``qual``), ``name_id`` int32, ``name_len`` u8. Bytes (Q):
     ``seq``, ``qual`` u8. Positions (L): ``chrom_up`` u8 (uppercased
-    reference), ``is_n`` bool, ``gate`` u8. Host ints: ``n_events`` =
+    reference), ``is_n`` bool. Host ints: ``n_events`` =
     cum[S], ``max_span`` the longest span. The CUDA kernel also needs the
     spans in non-decreasing ``span_ref`` order (``SpanIndex`` order); the
     plain version takes any order."""
@@ -84,7 +92,6 @@ class TileInputs(NamedTuple):
     qual: torch.Tensor
     chrom_up: torch.Tensor
     is_n: torch.Tensor
-    gate: torch.Tensor
     n_events: int
     max_span: int
 
@@ -94,7 +101,7 @@ _DTYPES = dict(span_read=torch.int32, span_ref=torch.int32,
                mapq=torch.uint8, flag=torch.int32, lseq=torch.int32,
                seq_off=torch.int32, name_id=torch.int32,
                name_len=torch.uint8, seq=torch.uint8, qual=torch.uint8,
-               chrom_up=torch.uint8, is_n=torch.bool, gate=torch.uint8)
+               chrom_up=torch.uint8, is_n=torch.bool)
 
 def screen_threshold(min_ratio: float) -> float:
     """The screen's f32 threshold ``min_ratio*(1-1e-3) - 1e-9``, rounded
@@ -115,7 +122,9 @@ def to_device(a, dtype, device) -> torch.Tensor:
 class SpanIndex:
     """M-span table sorted by reference start with per-range clipping —
     the host-side tiling step. Splitting spans at tile edges keeps every
-    per-base statistic position-local, so tiling is exact."""
+    per-base statistic position-local, so tiling is exact. Its columns are
+    int32 (BAM positions, lengths and offsets are): an ingest chunk's
+    index lives through all the chunk's sub-chunks."""
 
     def __init__(self, batch, lo: int = 0, hi: int = 0):
         """With ``hi > lo``, only the spans overlapping [lo, hi): the
@@ -125,10 +134,10 @@ class SpanIndex:
         if hi > lo:
             m = (sref < hi) & (sref + slen > lo)
             sref, slen, sread, soff = sref[m], slen[m], sread[m], soff[m]
-        sref = sref.astype(np.int64)
-        slen = slen.astype(np.int64)
-        sread = sread.astype(np.int64)
-        soff = soff.astype(np.int64)
+        sref = sref.astype(np.int32)
+        slen = slen.astype(np.int32)
+        sread = sread.astype(np.int32)
+        soff = soff.astype(np.int32)
         if len(sref):
             order = np.argsort(sref, kind="stable")
             sref, slen, sread, soff = (sref[order], slen[order],
@@ -155,24 +164,30 @@ class SpanIndex:
                 (t_off + delta)[keep], t_len[keep])
 
 
-def pack_arrays(arrays: dict, dtypes: dict, device, pin: bool = True) -> dict:
-    """Views on ``device``, keyed as ``dtypes`` (name -> torch dtype), of
-    the numpy ``arrays`` (1-D, any numeric or bool dtype): packed into one
-    host buffer at 16-byte aligned offsets and uploaded in one copy. For a
-    CUDA device the host buffer is pinned (unless ``pin`` is False) and
-    the copy is not waited for: torch's caching host allocator hands the
-    pinned block out again only once the copy out of it has finished, and
-    keeps it, resident, for the next request of its size class. Unpinned,
-    the copy has finished when this returns and the buffer is freed."""
-    dev = torch.device(device)
+def pack_offsets(arrays: dict, dtypes: dict):
+    """``pack_arrays``'s layout of the numpy ``arrays`` as ``dtypes`` types
+    them: [(name, byte offset, bytes)] at 16-byte aligned offsets, and the
+    buffer's bytes (at least 16)."""
     offs, total = [], 0
     for name, dt in dtypes.items():
         n = len(arrays[name]) * dt.itemsize
         offs.append((name, total, n))
         total += -(-n // 16) * 16
-    total = max(total, 16)
+    return offs, max(total, 16)
+
+
+def pack_arrays(arrays: dict, dtypes: dict, device) -> dict:
+    """Views on ``device``, keyed as ``dtypes`` (name -> torch dtype), of
+    the numpy ``arrays`` (1-D, any numeric or bool dtype): packed into one
+    host buffer (``pack_offsets``) and uploaded in one copy. For a CUDA
+    device the host buffer is pinned and the copy is not waited for:
+    torch's caching host allocator hands the pinned block out again only
+    once the copy out of it has finished, and keeps it, resident, for the
+    next request of its size class."""
+    dev = torch.device(device)
+    offs, total = pack_offsets(arrays, dtypes)
     host = torch.empty(total, dtype=torch.uint8,
-                       pin_memory=pin and dev.type == "cuda")
+                       pin_memory=dev.type == "cuda")
     hb = host.numpy()
     for name, off, n in offs:
         np_dt = np.dtype(str(dtypes[name]).replace("torch.", ""))
@@ -190,19 +205,28 @@ def pack_arrays(arrays: dict, dtypes: dict, device, pin: bool = True) -> dict:
 
 def pack_tile(arrays: dict, device) -> TileInputs:
     """``TileInputs`` on ``device`` from the tile's arrays (numpy, keyed by
-    field name), in one upload (``pack_arrays``)."""
+    field name; any other key, such as ``gate``, is not packed), in one
+    upload (``pack_arrays``)."""
     cum = np.asarray(arrays["cum"])
     return TileInputs(**pack_arrays(arrays, _DTYPES, device),
                       n_events=int(cum[-1]),
                       max_span=int(np.diff(cum).max()) if len(cum) > 1 else 0)
 
 
+def tile_gate(gate: np.ndarray, device) -> torch.Tensor:
+    """``gate > 0`` as the u8 tensor ``tile_launch`` takes, on ``device`` in
+    one upload (pinned and not waited for on a CUDA device, as
+    ``pack_arrays`` uploads); a range's gate, whose slices are its tiles'
+    gates."""
+    return pack_arrays({"gate": np.asarray(gate) > 0},
+                       {"gate": torch.uint8}, device)["gate"]
+
+
 def tile_inputs(sindex: SpanIndex, reads, elig_u8: np.ndarray, t0: int,
                 t1: int, chrom_up: np.ndarray, is_n: np.ndarray,
-                gate: np.ndarray, device) -> Optional[TileInputs]:
-    """The tile [t0, t1) on ``device`` (one upload); ``chrom_up``/``is_n``/
-    ``gate`` are already cut to the tile. None when no span reaches the
-    tile."""
+                device) -> Optional[TileInputs]:
+    """The tile [t0, t1) on ``device`` (one upload); ``chrom_up``/``is_n``
+    are already cut to the tile. None when no span reaches the tile."""
     t_read, t_ref, t_off, t_len = sindex.slice_range(t0, t1)
     S = len(t_len)
     if S == 0:
@@ -223,7 +247,7 @@ def tile_inputs(sindex: SpanIndex, reads, elig_u8: np.ndarray, t0: int,
         seq_off=reads.seq_off[r0:r1].astype(np.int64) - q0,
         name_id=reads.name_id[r0:r1], name_len=reads.name_len[r0:r1],
         seq=reads.seq[q0:q1], qual=reads.qual[q0:q1], chrom_up=chrom_up,
-        is_n=is_n, gate=gate), device)
+        is_n=is_n), device)
 
 
 def _lut(device) -> torch.Tensor:
@@ -234,12 +258,14 @@ def _lut(device) -> torch.Tensor:
     return lut.to(device)
 
 
-def tile_kernel_plain(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
-                      min_snv: int, name_len_cap: int = NAME_LEN_CAP
+def tile_kernel_plain(t: TileInputs, gate: torch.Tensor, thr: float,
+                      min_mapq: int, min_bq: int, min_snv: int,
+                      name_len_cap: int = NAME_LEN_CAP
                       ) -> Tuple[torch.Tensor, int, dict]:
-    """The tile kernel in plain torch. Returns (base_tot int32 [L], n_mm,
-    cand) where cand holds the candidate positions (int64, ascending) and
-    their int32 statistics ([4, K] for the per-base channels)."""
+    """The tile kernel in plain torch; ``gate`` u8 [L]. Returns (base_tot
+    int32 [L], n_mm, cand) where cand holds the candidate positions (int64,
+    ascending) and their int32 statistics ([4, K] for the per-base
+    channels)."""
     dev = t.cum.device
     i64 = torch.int64
     L = t.chrom_up.shape[0]
@@ -330,7 +356,7 @@ def tile_kernel_plain(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
     is_alt = torch.arange(NT, device=dev)[:, None] != ref_code[None, :]
     ratio = snv.to(torch.float32) / total.to(torch.float32)
     qual_m = (is_alt & (ratio >= thr) & (snv >= min_snv)
-              & (t.gate > 0)[None, :] & ~t.is_n[None, :])
+              & (gate > 0)[None, :] & ~t.is_n[None, :])
     w = torch.nonzero(qual_m.any(0)).squeeze(1)
     cand = dict(
         pos=w, counts=snv[:, w], lowmq=lowmq[:, w],
@@ -354,20 +380,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_tile(t: TileInputs) -> None:
+def _check_tile(t: TileInputs, gate: torch.Tensor) -> None:
     dev = t.cum.device
-    for name, want in _DTYPES.items():
-        x = getattr(t, name)
+    for name, want in dict(_DTYPES, gate=torch.uint8).items():
+        x = gate if name == "gate" else getattr(t, name)
         if x.dtype != want or x.device != dev or not x.is_contiguous():
             raise ValueError("tile input %s must be a contiguous %s tensor "
                              "on %s (got %s on %s)"
                              % (name, want, dev, x.dtype, x.device))
+    if gate.shape != t.chrom_up.shape:
+        raise ValueError("the tile's gate has %d positions, the tile %d"
+                         % (gate.shape[0], t.chrom_up.shape[0]))
 
 
-def _tile_launch_cuda(t: TileInputs, thr: float, min_mapq: int,
-                      min_bq: int, min_snv: int, name_len_cap: int,
-                      pass_ms=None) -> torch.Tensor:
-    _check_tile(t)
+def _tile_launch_cuda(t: TileInputs, gate: torch.Tensor, thr: float,
+                      min_mapq: int, min_bq: int, min_snv: int,
+                      name_len_cap: int, pass_ms=None) -> torch.Tensor:
+    _check_tile(t, gate)
     lib = _lib()
     dev = t.cum.device
     L = int(t.chrom_up.shape[0])
@@ -375,7 +404,9 @@ def _tile_launch_cuda(t: TileInputs, thr: float, min_mapq: int,
                           dtype=torch.uint8, device=dev)
     res = torch.empty(lib.gt_tile_result_len(L), dtype=torch.int32,
                       device=dev)
+    # the kernel's pointer order: the fields, then the gate
     ptrs = [getattr(t, name).data_ptr() for name in _DTYPES]
+    ptrs.append(gate.data_ptr())
     _build.check(lib, lib.gt_tile_accumulate(
         *ptrs[:4], int(t.span_read.shape[0]), *ptrs[4:], L, t.n_events,
         t.max_span, min_mapq, min_bq, min_snv, name_len_cap, thr,
@@ -465,36 +496,38 @@ def merge_cands(parts) -> dict:
     return out
 
 
-def tile_launch(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
-                min_snv: int, name_len_cap: int = NAME_LEN_CAP
-                ) -> torch.Tensor:
-    """Enqueue one tile's accumulate + screen and return its packed result
-    (int32: header, base_tot, candidate rows) on the tile's device, without
-    waiting for it: the CUDA kernel for CUDA tensors, ``tile_kernel_plain``
-    (packed) for CPU tensors."""
+def tile_launch(t: TileInputs, gate: torch.Tensor, thr: float,
+                min_mapq: int, min_bq: int, min_snv: int,
+                name_len_cap: int = NAME_LEN_CAP) -> torch.Tensor:
+    """Enqueue one tile's accumulate + screen under ``gate`` (u8 [L], on the
+    tile's device) and return its packed result (int32: header, base_tot,
+    candidate rows) on the tile's device, without waiting for it: the CUDA
+    kernel for CUDA tensors, ``tile_kernel_plain`` (packed) for CPU
+    tensors."""
     kind = t.cum.device.type
     if kind == "cuda":
         with torch.cuda.device(t.cum.device):
-            res = _tile_launch_cuda(t, thr, min_mapq, min_bq, min_snv,
+            res = _tile_launch_cuda(t, gate, thr, min_mapq, min_bq, min_snv,
                                     name_len_cap)
         _build.LAUNCHES["tile_accumulate"] += 1
         return res
     if kind == "cpu":
-        return pack_result(*tile_kernel_plain(t, thr, min_mapq, min_bq,
+        return pack_result(*tile_kernel_plain(t, gate, thr, min_mapq, min_bq,
                                               min_snv, name_len_cap))
     raise ValueError("tile_kernel runs on cuda or cpu tensors, not %s" % kind)
 
 
-def tile_kernel(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
-                min_snv: int, name_len_cap: int = NAME_LEN_CAP):
+def tile_kernel(t: TileInputs, gate: torch.Tensor, thr: float,
+                min_mapq: int, min_bq: int, min_snv: int,
+                name_len_cap: int = NAME_LEN_CAP):
     """One tile's accumulate + screen, unpacked as ``tile_kernel_plain``
     returns it (base_tot int32 [L], n_mm, cand): the CUDA kernel for CUDA
     tensors (one sync, to read the header), ``tile_kernel_plain`` for CPU
     tensors."""
     if t.cum.device.type == "cpu":
-        return tile_kernel_plain(t, thr, min_mapq, min_bq, min_snv,
+        return tile_kernel_plain(t, gate, thr, min_mapq, min_bq, min_snv,
                                  name_len_cap)
-    res = tile_launch(t, thr, min_mapq, min_bq, min_snv, name_len_cap)
+    res = tile_launch(t, gate, thr, min_mapq, min_bq, min_snv, name_len_cap)
     n_mm, K = read_header(result_header(res).cpu())
     L = int(t.chrom_up.shape[0])
     # views of the result rows; pos as int64, as the plain version has it
@@ -503,15 +536,16 @@ def tile_kernel(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
     return result_base_tot(res, L), n_mm, cand
 
 
-def tile_pass_ms(t: TileInputs, thr: float, min_mapq: int, min_bq: int,
-                 min_snv: int, name_len_cap: int = NAME_LEN_CAP) -> dict:
+def tile_pass_ms(t: TileInputs, gate: torch.Tensor, thr: float,
+                 min_mapq: int, min_bq: int, min_snv: int,
+                 name_len_cap: int = NAME_LEN_CAP) -> dict:
     """Card milliseconds of each pass of one CUDA launch of the tile
     (CUDA events between the passes); a measurement, not counted in
     ``LAUNCHES``."""
     ms = np.zeros(2, np.float32)
     with torch.cuda.device(t.cum.device):
-        _tile_launch_cuda(t, thr, min_mapq, min_bq, min_snv, name_len_cap,
-                          pass_ms=ms)
+        _tile_launch_cuda(t, gate, thr, min_mapq, min_bq, min_snv,
+                          name_len_cap, pass_ms=ms)
     return {"tile_window": float(ms[0]), "tile_compact": float(ms[1])}
 
 
@@ -565,6 +599,53 @@ class TorchAccumulator:
         cand = unpack_rows(result_rows(arr, L, K), t0) if K else None
         return result_base_tot(arr, L), n_mm, cand
 
+    def chunk(self, batch, eligible: np.ndarray, lo: int = 0,
+              hi: int = 0) -> "ChunkReads":
+        """The host index ``prepare`` reads: the spans of ``batch`` over
+        [lo, hi) (all of them unless ``hi > lo``)."""
+        return ChunkReads(batch, eligible, "torch", lo, hi)
+
+    def prepare(self, chrom: np.ndarray, chunk: "ChunkReads", cfg,
+                lo: int = 0, hi: int = 0) -> "TorchJob":
+        """The job of [lo, hi) (within ``chunk``'s range): every tile's
+        inputs on this accumulator's device, one upload a tile, not waited
+        for. The job holds no host array of the reads."""
+        L = len(chrom)
+        hi = hi if hi > 0 else L
+        up, is_n = ref_bases(chrom, lo, hi)
+        tiles = []
+        for t0 in range(lo, hi, TILE_L):
+            t1 = min(t0 + TILE_L, hi)
+            tile = tile_inputs(chunk.sindex, chunk.reads, chunk.elig_u8, t0,
+                               t1, up[t0 - lo:t1 - lo],
+                               is_n[t0 - lo:t1 - lo], self.device)
+            if tile is not None:
+                tiles.append((t0, t1, tile))
+        return TorchJob(lo, hi, L, tiles, screen_threshold(cfg.min_snv_ratio),
+                        (cfg.min_mapq, cfg.min_base_qual, cfg.min_snv))
+
+    def launch(self, job: "TorchJob", gate: np.ndarray,
+               base_tot_out: np.ndarray = None, gate_base: int = 0,
+               base_tot_base: int = 0):
+        """Run a prepared job under ``gate``: the gate of [lo, hi) in one
+        upload, then per tile one launch and one read back. ``gate`` /
+        ``base_tot_out`` may be range-local arrays whose index 0 is
+        ``gate_base`` / ``base_tot_base``. Returns (base_tot,
+        candidates)."""
+        lo, hi = job.lo, job.hi
+        base_tot = (base_tot_out if base_tot_out is not None
+                    else np.zeros(job.L, np.int64))
+        g = (tile_gate(gate[lo - gate_base:hi - gate_base], self.device)
+             if job.tiles else None)
+        parts = []
+        for t0, t1, tile in job.tiles:
+            res = tile_launch(tile, g[t0 - lo:t1 - lo], job.thr, *job.params)
+            bt, _, cand = self._fetch(res, t1 - t0, t0)
+            base_tot[t0 - base_tot_base:t1 - base_tot_base] = bt
+            if cand is not None:
+                parts.append(cand)
+        return base_tot, merge_cands(parts)
+
     def run(self, chrom: np.ndarray, batch, eligible: np.ndarray, cfg,
             gate: np.ndarray, lo: int = 0, hi: int = 0,
             base_tot_out: np.ndarray = None, gate_base: int = 0,
@@ -573,35 +654,61 @@ class TorchAccumulator:
         clipped at the range edges exactly like tile edges);
         ``base_tot_out`` receives base_tot in place across chunked calls.
         ``gate``/``base_tot_out`` may be chunk-local arrays whose index 0 is
-        ``gate_base``/``base_tot_base``. Returns (base_tot, candidates)."""
+        ``gate_base``/``base_tot_base``. Returns (base_tot, candidates):
+        ``prepare`` then ``launch``."""
+        hi = hi if hi > 0 else len(chrom)
+        job = self.prepare(chrom, self.chunk(batch, eligible, lo, hi), cfg,
+                           lo, hi)
+        return self.launch(job, gate, base_tot_out, gate_base,
+                           base_tot_base)
+
+
+class ChunkReads:
+    """What the device jobs of an ingest chunk's detect sub-chunks read on
+    the host while they are prepared: one ``SpanIndex`` of the chunk's
+    spans over [lo, hi) (all of them unless ``hi > lo``), the reads, their
+    eligibility as u8; ``spans``: what an accumulator uploads of them once
+    a chunk (the mesh engine: each lane's K5 input), or None. A job of a
+    range within [lo, hi) slices the same spans in the same order as an
+    index of its own range would give it. ``engine`` names the accumulator
+    in the error for reads decoded without their name ids."""
+
+    def __init__(self, batch, eligible: np.ndarray, engine: str,
+                 lo: int = 0, hi: int = 0):
         reads = batch.reads
         if reads.name_id is None or reads.name_len is None:
-            raise ValueError("the torch accumulator needs read-name ids: "
-                             "decode the reads with their names")
-        L = len(chrom)
-        hi = hi if hi > 0 else L
-        sindex = SpanIndex(batch, lo, hi)
-        part = chrom[lo:hi]
-        up = np.where(part >= 97, part - 32, part).astype(np.uint8)
-        is_n = up == ord("N")
-        elig_u8 = eligible.astype(np.uint8)
-        gate_u8 = (gate > 0).astype(np.uint8)
-        base_tot = (base_tot_out if base_tot_out is not None
-                    else np.zeros(L, np.int64))
-        thr = screen_threshold(cfg.min_snv_ratio)
-        parts = []
-        for t0 in range(lo, hi, TILE_L):
-            t1 = min(t0 + TILE_L, hi)
-            tile = tile_inputs(sindex, reads, elig_u8, t0, t1,
-                               up[t0 - lo:t1 - lo], is_n[t0 - lo:t1 - lo],
-                               gate_u8[t0 - gate_base:t1 - gate_base],
-                               self.device)
-            if tile is None:
-                continue
-            res = tile_launch(tile, thr, cfg.min_mapq, cfg.min_base_qual,
-                              cfg.min_snv)
-            bt, _, cand = self._fetch(res, t1 - t0, t0)
-            base_tot[t0 - base_tot_base:t1 - base_tot_base] = bt
-            if cand is not None:
-                parts.append(cand)
-        return base_tot, merge_cands(parts)
+            raise ValueError("the %s accumulator needs read-name ids: decode "
+                             "the reads with their names" % engine)
+        self.reads = reads
+        self.elig_u8 = eligible.astype(np.uint8)
+        self.sindex = SpanIndex(batch, lo, hi)
+        self.spans = None
+
+
+class TorchJob(NamedTuple):
+    """A prepared range [lo, hi) of a chromosome of L bases: its tiles
+    (t0, t1, ``TileInputs`` on the device), the screen's threshold and the
+    kernel's (min_mapq, min_bq, min_snv)."""
+    lo: int
+    hi: int
+    L: int
+    tiles: list
+    thr: float
+    params: tuple
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the job's inputs."""
+        return sum(tile_bytes(t) for _, _, t in self.tiles)
+
+
+def tile_bytes(t: TileInputs) -> int:
+    """Bytes of a tile's packed inputs (its one buffer)."""
+    return t.span_read.untyped_storage().nbytes()
+
+
+def ref_bases(chrom: np.ndarray, lo: int, hi: int):
+    """(the reference of [lo, hi) uppercased, u8; where it is N)."""
+    part = chrom[lo:hi]
+    up = np.where(part >= 97, part - 32, part).astype(np.uint8)
+    return up, up == ord("N")

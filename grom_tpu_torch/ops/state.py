@@ -6,13 +6,14 @@ the same values) go through these converters:
 * ``tile_from_args``: a tile's padded argument tuple, as
   ``__graft_entry__.tile_args_from_fixture`` builds it for
   ``tile_kernel_core``, with the pads stripped to runtime sizes and
-  packed into one buffer as ``tile_inputs`` packs a tile;
+  packed into one buffer as ``tile_inputs`` packs a tile, its gate
+  uploaded apart as ``tile_gate`` uploads a range's;
 * ``cnv_tables``: the count tables of the CNV bin rows, ``ave``, ``std``
   and the pval2sd table, checked for the order and range they need, in one
   upload; ``z_inputs``: the z stage's per-base inputs, in blocks through
   one staging buffer;
 * ``span_inputs``: a run's M-spans and reads as ``rd_scatter`` inputs, in
-  one upload;
+  blocks through two staging buffers on a copy stream;
 * ``cell_deltas``: one mesh cell's slice of the rd endpoint deltas
   (parallel/pipeline.py ``endpoint_deltas``), cell-relative: the host
   reference that the tests hold ``rd_scatter`` to;
@@ -27,13 +28,15 @@ the same values) go through these converters:
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from grom_tpu_torch.ops.accumulate import (TileInputs, pack_arrays,
-                                            pack_tile, screen_threshold,
+                                            pack_offsets, pack_tile,
+                                            screen_threshold, tile_gate,
                                             to_device)
 from grom_tpu_torch.ops.cnv_device import (COUNT_CAP, TABLE_DTYPES,
                                             ZIN_DTYPES, CnvTables, ZInputs,
@@ -45,7 +48,9 @@ from grom_tpu_torch.ops.sv_device import ENTRY_KEYS, SvTables
 def tile_from_args(args: tuple, statics: dict, device
                    ) -> Tuple[TileInputs, dict]:
     """(TileInputs, kernel params) from a padded ``tile_kernel_core``
-    argument tuple and its static kwargs."""
+    argument tuple and its static kwargs; the params hold the tile's
+    ``gate`` (on ``device``) beside the scalars, so
+    ``tile_kernel(t, **params)`` runs the tile."""
     (span_read, span_ref, span_off, cum, elig, mapq, flag, lseq, seq_off,
      seq, qual, name_id, name_len, chrom_up, is_n, gate, min_ratio,
      n_span) = args
@@ -60,8 +65,9 @@ def tile_from_args(args: tuple, statics: dict, device
         cum=cum[:S + 1], elig=elig[:R], mapq=mapq[:R], flag=flag[:R],
         lseq=lseq[:R], seq_off=seq_off[:R], name_id=name_id[:R],
         name_len=name_len[:R], seq=seq[:Q], qual=qual[:Q],
-        chrom_up=chrom_up[:L], is_n=is_n[:L], gate=gate[:L]), device)
-    params = dict(thr=screen_threshold(float(min_ratio)),
+        chrom_up=chrom_up[:L], is_n=is_n[:L]), device)
+    params = dict(gate=tile_gate(gate[:L], device),
+                  thr=screen_threshold(float(min_ratio)),
                   min_mapq=statics["min_mapq"], min_bq=statics["min_bq"],
                   min_snv=statics["min_snv"],
                   name_len_cap=statics["name_len_cap"])
@@ -138,15 +144,64 @@ def z_inputs(depth, mq, gc, low_acgt, lo: int, hi: int, device) -> ZInputs:
     return ZInputs(**views)
 
 
+# bytes a block of ``span_inputs``'s upload carries: it goes through two
+# pinned staging buffers of this size, whatever the number of spans
+SPAN_UPLOAD_BLOCK = 4 << 20
+
+
+@functools.lru_cache(maxsize=None)
+def _copy_stream(index: int) -> "torch.cuda.Stream":
+    """A stream of card ``index`` for uploads that must not queue behind
+    the kernels already enqueued on its current stream."""
+    return torch.cuda.Stream(device=index)
+
+
 def span_inputs(batch, eligible: np.ndarray, device) -> Spans:
     """The batch's M-spans (start, length, read) and its reads' mapq and
-    eligibility as ``rd_scatter`` inputs on ``device``, in one upload
-    (``pack_arrays``) from pageable memory: once a run, so a pinned block
-    (an ingest chunk's spans, 128 MiB at 30x) would only stay cached, and
-    resident, through the scan."""
-    return Spans(**pack_arrays(dict(
-        ref=batch.span_ref, len=batch.span_len, read=batch.span_read,
-        mapq=batch.mapq, elig=eligible), SPAN_DTYPES, device, pin=False))
+    eligibility as ``rd_scatter`` inputs on ``device``: views of one buffer
+    laid out as ``pack_arrays`` lays it out. On a CUDA device the buffer is
+    allocated on a copy stream of its own and filled there
+    ``SPAN_UPLOAD_BLOCK`` bytes at a time through two pinned staging
+    buffers; the current stream waits for that stream. So the upload
+    neither waits on the host for the kernels queued before it (a
+    staging buffer is refilled once the copy out of it has finished, and
+    the copy stream holds only copies) nor leaves a pinned block of the
+    whole upload (an ingest chunk's spans, 64 MiB at 30x) that torch's
+    caching host allocator would keep, resident, through the scan."""
+    arrays = dict(ref=batch.span_ref, len=batch.span_len,
+                  read=batch.span_read, mapq=batch.mapq, elig=eligible)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return Spans(**pack_arrays(arrays, SPAN_DTYPES, dev))
+    offs, total = pack_offsets(arrays, SPAN_DTYPES)
+    with torch.cuda.device(dev):
+        side = _copy_stream(torch.cuda.current_device())
+        with torch.cuda.stream(side):
+            buf = torch.empty(total, dtype=torch.uint8, device=dev)
+            stages = [torch.empty(SPAN_UPLOAD_BLOCK, dtype=torch.uint8,
+                                  pin_memory=True) for _ in range(2)]
+            copied = [None, None]
+            i = 0
+            for name, off, n in offs:
+                dt = SPAN_DTYPES[name]
+                np_dt = np.dtype(str(dt).replace("torch.", ""))
+                step = SPAN_UPLOAD_BLOCK // dt.itemsize
+                a = arrays[name]
+                for e0 in range(0, len(a), step):
+                    k = min(step, len(a) - e0) * dt.itemsize
+                    if copied[i] is not None:
+                        copied[i].synchronize()
+                    stages[i].numpy()[:k].view(np_dt)[:] = a[e0:e0 + step]
+                    buf[off + e0 * dt.itemsize:off + e0 * dt.itemsize + k] \
+                        .copy_(stages[i][:k], non_blocking=True)
+                    copied[i] = torch.cuda.Event()
+                    copied[i].record(side)
+                    i ^= 1
+        main = torch.cuda.current_stream()
+        main.wait_stream(side)
+        buf.record_stream(main)
+    return Spans(**{name: buf[off:off + n].view(SPAN_DTYPES[name])
+                    for name, off, n in offs})
 
 
 def cell_deltas(d_pos: np.ndarray, d_mq: np.ndarray, d_hi: np.ndarray,

@@ -6,8 +6,15 @@ A range is cut into cells of ``seg_l`` positions; each launch processes
 ``n_dp * n_sp`` consecutive cells, one per grid cell (parallel/mesh.py).
 Each device of the grid is a lane: the cells of each launch it holds. A
 run keeps its buffers on each lane in a ``_LaneRun`` of its own, so runs
-share no buffer. Per run, each lane takes the run's spans and reads in one
-upload (``ops/state.py span_inputs``). Per group of launches
+share no buffer. A run is ``prepare`` then ``launch`` (``run`` does both):
+``chunk`` indexes a batch's spans once (``ops/accumulate.py ChunkReads``)
+and each lane takes them and their reads in one upload (``ops/state.py
+span_inputs``), shared by every range prepared from it; ``prepare``
+uploads each cell's tile inputs to the cell's device (a ``MeshJob``, which
+holds device tensors only); ``launch`` uploads the range's gate once a
+lane and runs the kernels. The streamed driver makes one chunk an ingest
+chunk, prepares a detect sub-chunk's job when it feeds the sub-chunk and
+launches it when the sub-chunk drains. Per group of launches
 (all of a run's launches, unless their delta rows would pass
 ``GROUP_POSITIONS`` positions a lane), each lane runs K5 ``rd_scatter``
 once: the endpoint deltas, cell totals and chunk sums of every cell it
@@ -40,18 +47,19 @@ tests hold K5 to.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from grom_tpu_torch.ops import accumulate, rd_depth
-from grom_tpu_torch.ops.accumulate import (SpanIndex, merge_cands,
-                                            read_header, result_base_tot,
-                                            result_header, result_rows,
-                                            screen_threshold, tile_inputs,
-                                            unpack_rows)
+from grom_tpu_torch.ops.accumulate import (ChunkReads, merge_cands,
+                                            read_header, ref_bases,
+                                            result_base_tot, result_header,
+                                            result_rows, screen_threshold,
+                                            tile_bytes, tile_gate,
+                                            tile_inputs, unpack_rows)
 from grom_tpu_torch.ops.state import DepthLists, span_inputs
 from grom_tpu_torch.parallel.mesh import (Mesh, current_group, make_mesh,
                                           visible_cuda_devices)
@@ -113,17 +121,18 @@ class _Lane:
 
 
 class _LaneRun:
-    """One run's buffers on a lane's device: the run's spans, K5's outputs
-    for ``cells`` slots, the carry before each launch, the run's histogram,
-    and the staging the lane needs when it is not the collective device.
-    ``run`` holds them, so runs on one accumulator share no buffer."""
+    """One run's buffers on a lane's device: the run's spans (its chunk's
+    upload), K5's outputs for ``cells`` slots, the carry before each
+    launch, the run's histogram, and the staging the lane needs when it is
+    not the collective device. ``launch`` holds them, so runs on one
+    accumulator share no buffer."""
 
-    def __init__(self, lane: _Lane, batch, eligible, cells: int, seg_l: int,
+    def __init__(self, lane: _Lane, spans, cells: int, seg_l: int,
                  n_launches: int, n_launch: int, coll):
         i32 = torch.int32
         dev = lane.dev
         self.lane = lane
-        self.spans = span_inputs(batch, eligible, dev)
+        self.spans = spans
         self.rows, self.tot, self.csum = rd_depth.scatter_outputs(
             cells, seg_l, dev)
         self.carry = torch.zeros((n_launches + 1, 3), dtype=i32, device=dev)
@@ -137,6 +146,32 @@ class _LaneRun:
         """K5's outputs for a group of ``ng`` launches."""
         c = ng * len(self.lane.ks)
         return self.rows[:c], self.tot[:c], self.csum[:c]
+
+
+class MeshJob(NamedTuple):
+    """A prepared range [lo, hi) of a chromosome of L bases: its cells of
+    ``seg_l`` positions, its launches, the launches of a K5 group; per
+    launch the ``TileInputs`` (or None: no span reaches the cell) of each
+    of this process's cells, on the cell's device; each lane's upload of
+    the chunk's spans; the screen's threshold and the run's config."""
+    lo: int
+    hi: int
+    L: int
+    seg_l: int
+    cells: list
+    n_launches: int
+    per_group: int
+    tiles: list
+    spans: list
+    thr: float
+    cfg: object
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the job's tile inputs (the chunk's span uploads,
+        shared with the chunk's other jobs, apart)."""
+        return sum(tile_bytes(t) for launch in self.tiles for t in launch
+                   if t is not None)
 
 
 class MeshAccumulator:
@@ -204,24 +239,24 @@ class MeshAccumulator:
             dist.all_reduce(x, group=self.mesh.group)
         return x
 
-    def run(self, chrom: np.ndarray, batch, eligible: np.ndarray, cfg,
-            gate: np.ndarray, lo: int = 0, hi: int = 0,
-            base_tot_out: Optional[np.ndarray] = None,
-            rd_out=None, gate_base: int = 0, base_tot_base: int = 0):
-        """``lo``/``hi`` restrict processing to a position range;
-        ``base_tot_out``/``rd_out`` receive base_tot and the depth lists in
-        place. ``rd_out`` is three host arrays (rd_mq, rd_hi, rd_lo), or
-        ``ops/state.py DepthLists``, whose rows on the card each launch's
-        depth is copied into there, with no copy to the host (returned in
-        the place of the three arrays). ``gate``/``base_tot_out`` may be
-        chunk-local arrays whose index 0 is
-        ``gate_base``/``base_tot_base``."""
-        reads = batch.reads
-        if reads.name_id is None or reads.name_len is None:
-            raise ValueError("the mesh accumulator needs read-name ids: "
-                             "decode the reads with their names")
+    def chunk(self, batch, eligible: np.ndarray, lo: int = 0,
+              hi: int = 0) -> ChunkReads:
+        """The host index ``prepare`` reads (the spans of ``batch`` over
+        [lo, hi), all unless ``hi > lo``), with each lane's upload of the
+        batch's spans and reads (K5's input) in ``spans``."""
+        with phase("mesh.prep"):
+            ch = ChunkReads(batch, eligible, "mesh", lo, hi)
+        with phase("mesh.spans"):
+            ch.spans = [span_inputs(batch, eligible, lane.dev)
+                        for lane in self.lanes]
+        return ch
+
+    def prepare(self, chrom: np.ndarray, chunk: ChunkReads, cfg,
+                lo: int = 0, hi: int = 0) -> MeshJob:
+        """The job of [lo, hi) (within ``chunk``'s range): each of this
+        process's cells' tile inputs on the cell's device, one upload a
+        cell, not waited for. The job holds no host array of the reads."""
         m = self.mesh
-        i32 = torch.int32
         L = len(chrom)
         hi = hi if hi > 0 else L
         seg_l = self._seg_l_for(hi - lo)
@@ -232,20 +267,59 @@ class MeshAccumulator:
         # launches per K5 group
         per_group = min(n_launches, max(1, GROUP_POSITIONS // (
             seg_l * max(len(x.ks) for x in self.lanes))))
-
         with phase("mesh.prep"):
-            part = chrom[lo:hi]
-            up = np.where(part >= 97, part - 32, part).astype(np.uint8)
-            prep = dict(
-                sindex=SpanIndex(batch, lo, hi), reads=reads,
-                elig_u8=eligible.astype(np.uint8), up=up,
-                is_n=up == ord("N"), gate_u8=(gate > 0).astype(np.uint8),
-                lo=lo, gate_base=gate_base,
-                thr=screen_threshold(cfg.min_snv_ratio), cfg=cfg)
-        with phase("mesh.spans"):
-            runs = [_LaneRun(lane, batch, eligible, per_group * len(lane.ks),
-                             seg_l, n_launches, n, self.coll)
-                    for lane in self.lanes]
+            up, is_n = ref_bases(chrom, lo, hi)
+        tiles = []
+        k0 = m.first_cell
+        for r in range(n_launches):
+            # pad cells have no entry
+            mine = cells[r * n:(r + 1) * n][k0:k0 + m.n_local]
+            with phase("mesh.tile_inputs"):
+                tiles.append([tile_inputs(
+                    chunk.sindex, chunk.reads, chunk.elig_u8, t0, t1,
+                    up[t0 - lo:t1 - lo], is_n[t0 - lo:t1 - lo],
+                    m.devices[k]) for k, (t0, t1) in enumerate(mine)])
+        return MeshJob(lo, hi, L, seg_l, cells, n_launches, per_group, tiles,
+                       chunk.spans, screen_threshold(cfg.min_snv_ratio), cfg)
+
+    def run(self, chrom: np.ndarray, batch, eligible: np.ndarray, cfg,
+            gate: np.ndarray, lo: int = 0, hi: int = 0,
+            base_tot_out: Optional[np.ndarray] = None,
+            rd_out=None, gate_base: int = 0, base_tot_base: int = 0):
+        """``lo``/``hi`` restrict processing to a position range;
+        ``base_tot_out``/``rd_out`` receive base_tot and the depth lists in
+        place (``launch``). ``gate``/``base_tot_out`` may be chunk-local
+        arrays whose index 0 is ``gate_base``/``base_tot_base``:
+        ``prepare`` then ``launch``."""
+        hi = hi if hi > 0 else len(chrom)
+        job = self.prepare(chrom, self.chunk(batch, eligible, lo, hi), cfg,
+                           lo, hi)
+        return self.launch(job, gate, base_tot_out, rd_out, gate_base,
+                           base_tot_base)
+
+    def launch(self, job: MeshJob, gate: np.ndarray,
+               base_tot_out: Optional[np.ndarray] = None, rd_out=None,
+               gate_base: int = 0, base_tot_base: int = 0):
+        """Run a prepared job under ``gate`` (uploaded once a lane). Returns
+        (base_tot, cand, depth lists, hist). ``rd_out`` is three host arrays
+        (rd_mq, rd_hi, rd_lo), or ``ops/state.py DepthLists``, whose rows on
+        the card each launch's depth is copied into there, with no copy to
+        the host (returned in the place of the three arrays).
+        ``gate``/``base_tot_out`` may be range-local arrays whose index 0 is
+        ``gate_base``/``base_tot_base``."""
+        m = self.mesh
+        i32 = torch.int32
+        cfg = job.cfg
+        lo, hi, L, seg_l = job.lo, job.hi, job.L, job.seg_l
+        cells, n_launches, per_group = job.cells, job.n_launches, \
+            job.per_group
+        n = self.n_cells_launch
+        with phase("mesh.prep"):
+            g = gate[lo - gate_base:hi - gate_base]
+            gates = {lane.dev: tile_gate(g, lane.dev) for lane in self.lanes}
+        runs = [_LaneRun(lane, spans, per_group * len(lane.ks), seg_l,
+                         n_launches, n, self.coll)
+                for lane, spans in zip(self.lanes, job.spans)]
         coll = self.coll
         outs = dict(
             bt=torch.zeros((m.n_local, seg_l), dtype=i32, device=coll),
@@ -277,8 +351,8 @@ class MeshAccumulator:
                                         *lr.outputs(ng))
             for r in range(g0, g0 + ng):
                 launch = cells[r * n:(r + 1) * n]
-                bt, rd, cands = self._launch(r, r - g0, launch, prep, outs,
-                                             runs)
+                bt, rd, cands = self._launch(r, r - g0, launch, job, gates,
+                                             outs, runs, lists is None)
                 with phase("mesh.copy_out"):
                     # the launch's cells are consecutive, and all but the
                     # range's last are seg_l wide: its depth is one block
@@ -288,8 +362,7 @@ class MeshAccumulator:
                     if lists is not None:
                         lists.rows[:, a:b].copy_(block)
                     else:
-                        rd_mq[a:b], rd_hi[a:b], rd_lo[a:b] = \
-                            block.cpu().numpy()
+                        rd_mq[a:b], rd_hi[a:b], rd_lo[a:b] = block.numpy()
                     for i, (t0, t1) in enumerate(launch):
                         base_tot[t0 - base_tot_base:
                                  t1 - base_tot_base] = bt[i, :t1 - t0]
@@ -317,32 +390,29 @@ class MeshAccumulator:
             lr.launch_tot = (tot_all if lr.lane.dev == self.coll
                              else _copy(lr.tot_buf, tot_all))
 
-    def _launch(self, r: int, rr: int, launch, prep: dict, outs: dict,
-                runs):
+    def _launch(self, r: int, rr: int, launch, job: MeshJob, gates: dict,
+                outs: dict, runs, rd_host: bool):
         """Launch ``r`` (``rr`` within its K5 group) of up to
         ``n_cells_launch`` cells. Returns (base_tot int32 [n, seg_l], rd
         int32 [n, 3, seg_l], per-cell candidate dicts or None), gathered on
-        every process."""
+        every process; rd on the host with ``rd_host``, else on the
+        collective device."""
         m = self.mesh
         k0 = m.first_cell
         mine = launch[k0:k0 + m.n_local]     # pad cells have no entry
-        cfg = prep["cfg"]
-        lo = prep["lo"]
+        cfg = job.cfg
+        lo = job.lo
 
         results = []
         for k, (t0, t1) in enumerate(mine):
+            tile = job.tiles[r][k]
             with phase("mesh.tile"):
-                tile = tile_inputs(
-                    prep["sindex"], prep["reads"], prep["elig_u8"], t0, t1,
-                    prep["up"][t0 - lo:t1 - lo],
-                    prep["is_n"][t0 - lo:t1 - lo],
-                    prep["gate_u8"][t0 - prep["gate_base"]:
-                                    t1 - prep["gate_base"]], m.devices[k])
                 # a cell with no spans may still own end deltas
                 results.append(None if tile is None
                                else accumulate.tile_launch(
-                                   tile, prep["thr"], cfg.min_mapq,
-                                   cfg.min_base_qual, cfg.min_snv))
+                                   tile, gates[m.devices[k]][t0 - lo:t1 - lo],
+                                   job.thr, cfg.min_mapq, cfg.min_base_qual,
+                                   cfg.min_snv))
 
         # ---- cross-cell carry and depth ---------------------------------
         with phase("mesh.carry"):
@@ -371,17 +441,19 @@ class MeshAccumulator:
                           result_base_tot(results[k], t1 - t0))
                     _copy(outs["head"][k], result_header(results[k]))
         with phase("mesh.gathers"):
-            return self._gathers(launch, mine, results, outs)
+            return self._gathers(launch, mine, results, outs, rd_host)
 
-    def _gathers(self, launch, mine, results, outs):
+    def _gathers(self, launch, mine, results, outs, rd_host: bool):
         """The launch's outputs gathered on every process, as ``_launch``
-        returns them."""
+        returns them: the launch's host reads are all here."""
         m = self.mesh
         coll = self.coll
         i32 = torch.int32
         k0 = m.first_cell
         bt_all = self._gather(outs["bt"]).cpu().numpy()
         rd_all = self._gather(outs["rd"])
+        if rd_host:
+            rd_all = rd_all.cpu()
 
         # ---- candidates: counts, then rows padded to the largest -------
         counts = [read_header(h)[1]

@@ -12,9 +12,10 @@
   against grom_tpu's host engine, byte for byte: the streamed path whole and
   chunked, the whole-batch path and ``-c``, on the fixtures with SVs and
   CNVs; and once against grom_tpu's own mesh engine.
-* The streamed driver's cut of a queued job's batch to its range
-  (``driver._batch_for_range``) gives the torch and mesh accumulators'
-  results of the whole batch."""
+* A job prepared from an ingest chunk's one span index and launched
+  under a range-local gate (as the streamed driver queues a detect
+  sub-chunk's) gives the torch and mesh accumulators' results of a run
+  over its range alone."""
 
 import os
 
@@ -349,28 +350,33 @@ def test_mesh_engine_matches_grom_tpu_mesh(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("lo,hi", [(0, 50_000), (61_000, 133_000),
                                    (150_000, 199_000)])
-def test_batch_for_range_keeps_device_results(ds200k, lo, hi):
-    """The streamed driver's cut of a queued device job's batch
-    (``driver._batch_for_range``: the reads with an M-span in [lo, hi),
-    all their spans) drops reads, and the torch and mesh accumulators
-    give the same results over [lo, hi) on it as on the whole batch."""
-    from grom_tpu_torch.driver import _batch_for_range
+def test_chunk_index_keeps_device_results(ds200k, lo, hi):
+    """A job the streamed driver prepares from its ingest chunk's one span
+    index (``chunk`` over a wider range, then ``prepare`` of [lo, hi)) and
+    launches under a range-local gate gives the torch and mesh
+    accumulators' results of a run over [lo, hi) alone."""
     from grom_tpu_torch.ops.accumulate import TorchAccumulator
     ci = ds200k
-    sub, elig = _batch_for_range(ci.batch, ci.eligible, lo, hi)
-    assert 0 < len(sub.pos) < len(ci.batch.pos) // 2
-    assert len(sub.reads) == len(sub.pos) == len(elig)
-    assert int(sub.span_read.max()) == len(sub.pos) - 1
+    L = len(ci.chrom)
     kw = dict(lo=lo, hi=hi)
+    gate = ci.gate[lo:hi]
+    acc = TorchAccumulator("cpu")
+    job = acc.prepare(ci.chrom, acc.chunk(ci.batch, ci.eligible, 0, L),
+                      ci.cfg, lo, hi)
+    assert job.tiles and job.nbytes > 0
+    bt = np.zeros(hi - lo, np.int64)
+    cut = acc.launch(job, gate, base_tot_out=bt, gate_base=lo,
+                     base_tot_base=lo)
     whole = TorchAccumulator("cpu").run(ci.chrom, ci.batch, ci.eligible,
                                         ci.cfg, ci.gate, **kw)
-    cut = TorchAccumulator("cpu").run(ci.chrom, sub, elig, ci.cfg, ci.gate,
-                                      **kw)
-    assert np.array_equal(cut[0], whole[0]) and cut[1]["n"] > 0
+    assert cut[0] is bt and cut[1]["n"] > 0
+    assert np.array_equal(cut[0], whole[0][lo:hi])
     for k, v in whole[1].items():
         assert np.array_equal(cut[1][k], v), k
-    mesh = lambda: MeshAccumulator(mesh=make_mesh(1, 1, devices=["cpu"]),
-                                   seg_l=1 << 14)
-    _same_result(mesh().run(ci.chrom, sub, elig, ci.cfg, ci.gate, **kw),
-                 mesh().run(ci.chrom, ci.batch, ci.eligible, ci.cfg,
-                            ci.gate, **kw))
+    mesh = MeshAccumulator(mesh=make_mesh(1, 1, devices=["cpu"]),
+                           seg_l=1 << 14)
+    job = mesh.prepare(ci.chrom, mesh.chunk(ci.batch, ci.eligible, 0, L),
+                       ci.cfg, lo, hi)
+    _same_result(mesh.launch(job, gate, gate_base=lo),
+                 mesh.run(ci.chrom, ci.batch, ci.eligible, ci.cfg, ci.gate,
+                          **kw))

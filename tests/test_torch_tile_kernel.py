@@ -419,8 +419,8 @@ def test_tile_kernel_cuda_matches_plain(min_snv):
         tile, params = tile_from_args(args, statics, "cuda")
         bt, n_mm, cand = tacc.tile_kernel(tile, **params)
         torch.cuda.synchronize()
-        tile_c, _ = tile_from_args(args, statics, "cpu")
-        bt_p, n_mm_p, cand_p = tacc.tile_kernel_plain(tile_c, **params)
+        tile_c, params_c = tile_from_args(args, statics, "cpu")
+        bt_p, n_mm_p, cand_p = tacc.tile_kernel_plain(tile_c, **params_c)
         assert torch.equal(bt.cpu(), bt_p) and n_mm == n_mm_p
         for k in tacc.CAND_KEYS:
             assert torch.equal(cand[k].cpu(), cand_p[k]), k

@@ -1,7 +1,7 @@
 """What a run of the port holds in host memory at its peak.
 
     python3 tools/peak_probe.py [--step-mib 256] [--numpy] [--trim-s S] \
-        -- <grom_tpu_torch CLI arguments>
+        [--events] -- <grom_tpu_torch CLI arguments>
 
 Runs the port's CLI (``cli.main``, as ``python -m grom_tpu_torch`` runs
 it) in this process, with a thread that reads the resident set size
@@ -13,7 +13,14 @@ it) in this process, with a thread that reads the resident set size
   ``tools/rss_baseline.py`` splits it);
 * glibc's heap (``mallinfo2``): bytes its arenas hold (``arena``), of
   them in use (``in_use``) and free but kept (``free``), and bytes in
-  mmapped blocks (``mmap``);
+  mmapped blocks (``mmap``); and arena by arena (``malloc_info``): the
+  KiB each has from the system and of them free (``arenas``, main arena
+  first; one arena a thread that allocated, the ingest producer's
+  among them);
+* whether an ingest fetch was in flight (``fetching``: the chunks being
+  fetched) and the device bytes the queued device jobs (fed but not yet
+  drained) have held at most so far in the running scan (``queued``: the
+  ``queued_peak`` of the driver's last ``DEPTH_LISTS`` record);
 * where the run has created a CUDA context, the pinned host memory of
   torch's caching host allocator (``torch.cuda.host_memory_stats()``:
   bytes of the blocks it holds, handed out or cached, now and at peak);
@@ -23,7 +30,12 @@ it) in this process, with a thread that reads the resident set size
   most. tracemalloc slows the scan stage many times over (every Python
   allocation is recorded).
 
-The last reading is the one nearest the run's peak, within one step. A
+The last reading is the one nearest the run's peak, within one step.
+With ``--events``, a reading is also taken at each streamed ingest
+fetch's start and end (on the producer thread) and after each drained
+detect sub-chunk, each kept in ``events`` with its kind and range: the
+comparison of the host, torch and mesh engines by site (numpy's blocks
+with ``--numpy``). A
 second reading is taken as each chromosome's scan stage ends
 (``driver._finish_chromosome`` is entered), with every numpy block of
 4·L bytes or more alive then (L, the chromosome's length: one int32
@@ -51,7 +63,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from rss_baseline import smaps_by_file, top_files  # noqa: E402
 
 NUMPY_DOMAIN = 389047
-TOP = 12
+TOP = 16
 
 
 def _rss_kib() -> int:
@@ -77,6 +89,43 @@ def heap_stats():
     return {"arena": m.arena >> 10, "in_use": m.uordblks >> 10,
             "free": m.fordblks >> 10, "top_free": m.keepcost >> 10,
             "mmap": m.hblkhd >> 10}
+
+
+def arena_stats():
+    """glibc's heap arena by arena (``malloc_info``'s XML): a list, main
+    arena first, of [KiB from the system, KiB of it free], and the KiB of
+    mmapped blocks; None off glibc."""
+    import xml.etree.ElementTree as ET
+    try:
+        libc = ctypes.CDLL(None)
+        info, memstream = libc.malloc_info, libc.open_memstream
+    except (OSError, AttributeError):
+        return None
+    buf, size = ctypes.c_void_p(), ctypes.c_size_t()
+    memstream.restype = ctypes.c_void_p
+    memstream.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                          ctypes.POINTER(ctypes.c_size_t)]
+    info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    libc.fclose.argtypes = [ctypes.c_void_p]
+    libc.free.argtypes = [ctypes.c_void_p]
+    f = memstream(ctypes.byref(buf), ctypes.byref(size))
+    if not f:
+        return None
+    info(0, f)
+    libc.fclose(f)
+    try:
+        root = ET.fromstring(ctypes.string_at(buf, size.value))
+    finally:
+        libc.free(buf)
+
+    def size_of(node, tag, kind):
+        el = node.find("%s[@type='%s']" % (tag, kind))
+        return int(el.get("size")) >> 10 if el is not None else 0
+
+    arenas = [[size_of(h, "system", "current"),
+               size_of(h, "total", "fast") + size_of(h, "total", "rest")]
+              for h in root.findall("heap")]
+    return {"arenas": arenas, "mmap": size_of(root, "total", "mmap")}
 
 
 def pinned_stats():
@@ -131,12 +180,65 @@ def reading(min_bytes: int = 0) -> dict:
     rec["file_kib"] = sum(v[0] for v in by["file"].values())
     rec["top_files"] = top_files(by["file"], 8)
     rec["heap"] = heap_stats()
+    rec["arenas"] = arena_stats()
     rec["pinned"] = pinned_stats()
+    rec["fetching"] = sorted(FETCHING)
+    rec["queued"] = queued_stats()
     rec["numpy"] = numpy_blocks(min_bytes)
     return rec
 
 
 T0 = time.perf_counter()
+# the ingest chunks whose fetch is in flight, (t0, t1)
+FETCHING: set = set()
+
+
+def queued_stats():
+    """The device bytes the queued jobs of the running (or last) streamed
+    scan have held at most so far; None before the first scan."""
+    drv = sys.modules.get("grom_tpu_torch.driver")
+    recs = getattr(drv, "DEPTH_LISTS", None)
+    return recs[-1].get("queued_peak", 0) if recs else None
+
+
+class Events:
+    """``--events``: a reading at each streamed ingest fetch's start and
+    end and after each drained detect sub-chunk, kept in order."""
+
+    def __init__(self, driver):
+        self.records: list = []
+        self.lock = threading.Lock()
+        streamed = driver.call_chromosome_streamed
+
+        def probed_streamed(chrom, refid, out_name, cfg, drv, mq, hez,
+                            fetch, *a, **kw):
+            def probed_fetch(t0, t1):
+                with self.lock:
+                    FETCHING.add((t0, t1))
+                self.log("fetch_start", t0, t1)
+                try:
+                    return fetch(t0, t1)
+                finally:
+                    with self.lock:
+                        FETCHING.discard((t0, t1))
+                    self.log("fetch_end", t0, t1)
+            return streamed(chrom, refid, out_name, cfg, drv, mq, hez,
+                            probed_fetch, *a, **kw)
+
+        add = driver._ChunkDetect.add_window
+
+        def probed_add(det, d0, d1, *a, **kw):
+            out = add(det, d0, d1, *a, **kw)
+            self.log("drained", d0, d1)
+            return out
+
+        driver.call_chromosome_streamed = probed_streamed
+        driver._ChunkDetect.add_window = probed_add
+
+    def log(self, kind: str, lo: int, hi: int) -> None:
+        rec = dict(event=kind, lo=lo, hi=hi, **reading())
+        with self.lock:
+            self.records.append(rec)
 
 
 class Watch:
@@ -185,6 +287,9 @@ def main() -> int:
                     help="trace numpy's blocks (slow)")
     ap.add_argument("--trim-s", type=float, default=0.0,
                     help="malloc_trim(0) every this many seconds")
+    ap.add_argument("--events", action="store_true",
+                    help="a reading at each fetch's start and end and "
+                         "each drained detect sub-chunk")
     ap.add_argument("cli", nargs=argparse.REMAINDER)
     a = ap.parse_args()
     argv = a.cli[1:] if a.cli[:1] == ["--"] else a.cli
@@ -204,6 +309,7 @@ def main() -> int:
         return finish(chrom, *args, **kw)
 
     driver._finish_chromosome = probed_finish
+    events = Events(driver) if a.events else None
     watch = Watch(a.step_mib << 10, a.trim_s)
     rc = cli.main(argv)
     watch.stop.set()
@@ -212,7 +318,9 @@ def main() -> int:
         "rss_max_sampled_kib": watch.max_kib, "trims": watch.trims,
         "errors": watch.errors[:5],
         "peak": watch.peak,
-        "scan_end": scan_ends}), file=sys.stderr, flush=True)
+        "scan_end": scan_ends,
+        "events": events.records if events else None}), file=sys.stderr,
+        flush=True)
     return rc
 
 

@@ -2,6 +2,8 @@
 
     python3 tools/torch_scale.py [--runs host,torch,mesh,torch_4m1m,torch_P8]
                                  [--length 250000000] [--repos DIR,DIR]
+                                 [--wide] [--memprof] [--probe]
+                                 [--device-env NAME=VALUE ...]
     python3 tools/torch_scale.py --runs host,torch_hostcnv,mesh_hostcnv,host_devcnv
 
 Generates grom_tpu's 250 Mb WGS-scale chromosome (tests/test_wgs_scale.py
@@ -14,7 +16,8 @@ process with GROM_TPU_TIMING=1, in this order (the last three only when
 
 * ``host``: the host engine at the default geometry (16 Mi ingest chunks,
   4 Mi detect sub-chunks from 134,217,728 bases on): the reference output;
-* ``torch``: the torch engine, default geometry;
+* ``torch``: the torch engine, default geometry (a device engine's ingest
+  chunk is at most 8 Mi, its sub-chunks 4 Mi);
 * ``mesh``: the mesh engine, default geometry (a 1x1 grid on the card);
 * ``torch_4m1m``: the torch engine at 4 Mi chunks and 1 Mi sub-chunks
   (GROM_TPU_CHUNK_BASES, GROM_TPU_DETECT_BASES), the second geometry of
@@ -44,17 +47,34 @@ differing run does not stop the runs after it; the script then exits 1.
 It never falls back to the host engine or to the plain versions of the
 kernels. ``--length`` cuts the chromosome (planted features past the cut
 are dropped), never below 135,000,000 bases: below 134,217,728 the
-default ingest chunk is no longer 16 Mi.
+default ingest chunk is no longer 16 Mi. ``--wide`` sets the host
+engine's geometry there (16 Mi ingest chunks, 4 Mi detect sub-chunks:
+GROM_TPU_CHUNK_BASES and GROM_TPU_DETECT_BASES) on every run that sets
+none of its own, the device runs' included, and then
+takes any ``--length`` of at least 16 Mi: the comparison of the engines'
+host memory by site, at the geometry whose chunks it scales with, where
+it is cheap (24 Mb: ``--length 24000000 --wide --probe --probe-args
+"--events --numpy"``). ``--device-env NAME=VALUE`` (repeatable) sets a
+variable on every device run (the host run keeps its own environment),
+over what the run sets: e.g. ``GROM_TPU_CHUNK_BASES=8388608`` with ``--tag
+c8m.`` runs the device engines at 8 Mi ingest chunks against the default
+host run.
 
 ``--memprof`` runs each CLI under ``tools/memprof.py`` (its peak RSS
 split into anonymous, shm, BAM and other file-backed pages at each
 process's peak; the per-second CSV goes to build/torch_scale/) and keeps
 its line as the record's ``memprof``. ``--probe`` runs each CLI through
-``tools/peak_probe.py`` (numpy's live blocks, torch's pinned host memory
-and the smaps split at the peak and at the end of the scan stage) and
-keeps its line as ``peak_probe`` (``--probe-args`` passes it options,
-e.g. ``"--numpy"``); the probe costs time of its own, so its runs' walls
-are not comparable with others'.
+``tools/peak_probe.py`` (numpy's live blocks, glibc's heap arena by
+arena, torch's pinned host memory, the smaps split, the fetch in flight
+and the most bytes the queued device jobs have held so far, at the peak
+and at the end of the scan stage; with ``--events``, at each fetch's
+start and end and each drained detect sub-chunk) and keeps its line as ``peak_probe`` (``--probe-args``
+passes it options, e.g. ``"--numpy"``); the probe costs time of its own,
+so its runs' walls are not comparable with others'. Each record's
+``memory`` sums these up: the peak RSS, memprof's split at it, the
+probe's reading nearest it (anonymous and file KiB, the chunks being
+fetched, the heap's free KiB by arena, pinned bytes), the card bytes the
+queued device jobs held at most and the card's peak at the scan's end.
 
 ``--repos A,B`` runs the host run from the last checkout first (the
 reference), then from each other checkout (held byte for byte to the
@@ -85,6 +105,9 @@ DATASET = dict(length=250_000_000, coverage=30.0, seed=11, snp_rate=1e-3,
                depressions=[(120_000_000, 120_120_000, 0.4)],
                repeats=[(180_000_000, 180_040_000, b"AT")])
 MIN_LENGTH = 135_000_000
+# --wide: the default geometry from 134,217,728 bases on, set on each run
+WIDE = {"GROM_TPU_CHUNK_BASES": str(16 << 20),
+        "GROM_TPU_DETECT_BASES": str(4 << 20)}
 # seconds a run may take (the slowest at 250 Mb took 962)
 RUN_TIMEOUT_S = 2400
 
@@ -216,15 +239,49 @@ def rss_peak_kib(rec: dict):
     return (rec["peak_memory"] or {}).get("rss_peak_kib")
 
 
+def memory_summary(rec: dict) -> dict:
+    """A run's host and card memory readings in one place (see the module
+    doc): None where a reading was not taken."""
+    mem = rec.get("peak_memory") or {}
+    out = {"rss_peak_kib": rec.get("rss_peak_kib"),
+           "queued_jobs": mem.get("queued_jobs"),
+           "card_peak_scan": (mem.get("depth_lists") or {}).get(
+               "card_peak_scan")}
+    if rec.get("jobs"):
+        out["queued_jobs"] = [j.get("queued_jobs") for j in rec["jobs"]]
+        out["card_peak_scan"] = [(j.get("depth_lists") or {}).get(
+            "card_peak_scan") for j in rec["jobs"]]
+    prof = (rec.get("memprof") or {}).get("procs") or []
+    if prof:
+        top = prof[0]
+        out["memprof_gb"] = {k: top[k] for k in ("peak_gb", "anon_gb",
+                                                 "bam_gb", "file_gb")}
+    peak = (rec.get("peak_probe") or {}).get("peak")
+    if peak:
+        arenas = peak.get("arenas") or {}
+        out["probe_peak"] = {
+            "rss_kib": peak["rss_kib"], "anon_kib": peak["anon_kib"],
+            "file_kib": peak["file_kib"], "fetching": peak.get("fetching"),
+            "heap_free_kib": [a[1] for a in arenas.get("arenas", [])],
+            "pinned": peak.get("pinned"), "queued": peak.get("queued")}
+    return out
+
+
 def run_one(name: str, fa: str, bam: str, repo: str = REPO,
             tag: str = "", memprof: bool = False,
-            probe=None) -> dict:
+            probe=None, wide: bool = False, device_env=None) -> dict:
     """One run of the checkout ``repo`` in a fresh process; returns its
     record (``rc`` non-zero and the end of its stderr when it failed). Its
     files are named ``<tag><name>``. ``memprof``: under tools/memprof.py;
     ``probe`` (a list of its options, maybe empty): through
-    tools/peak_probe.py (both this checkout's)."""
+    tools/peak_probe.py (both this checkout's). ``wide``: at 16 Mi / 4 Mi
+    unless the run sets its own geometry; ``device_env``: variables set on
+    a device run over its own."""
     engine, env_extra, flags = RUNS[name]
+    if wide and "GROM_TPU_CHUNK_BASES" not in env_extra:
+        env_extra = dict(WIDE, **env_extra)
+    if device_env and name != "host":
+        env_extra = dict(env_extra, **device_env)
     vcf = os.path.join(OUT, "%s%s.vcf" % (tag, name))
     env = dict(os.environ, GROM_TPU_TIMING="1", GROM_TPU_TORCH_ENGINE=engine,
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
@@ -267,6 +324,7 @@ def run_one(name: str, fa: str, bam: str, repo: str = REPO,
         f.write(err)
     rec.update(parse_stderr(err))
     rec["rss_peak_kib"] = rss_peak_kib(rec)
+    rec["memory"] = memory_summary(rec)
     if rc != 0:
         rec["stderr_tail"] = err[-3000:]
         return rec
@@ -335,6 +393,12 @@ def main(argv=None) -> int:
                     help="run each CLI through tools/peak_probe.py")
     ap.add_argument("--probe-args", default="",
                     help="options for tools/peak_probe.py, space-separated")
+    ap.add_argument("--wide", action="store_true",
+                    help="every run at 16 Mi / 4 Mi; any --length from "
+                         "16 Mi on")
+    ap.add_argument("--device-env", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="set on every device run (repeatable)")
     ap.add_argument("--tag", default="",
                     help="a prefix for the runs' file names")
     ap.add_argument("--repos", default=".",
@@ -350,8 +414,15 @@ def main(argv=None) -> int:
     for r in runs:
         if r not in RUNS:
             ap.error("unknown run %r" % r)
-    if a.length < MIN_LENGTH or a.length > DATASET["length"]:
-        ap.error("--length must lie in [%d, %d]" % (MIN_LENGTH,
+    device_env = {}
+    for kv in a.device_env:
+        k, eq, v = kv.partition("=")
+        if not eq or not k:
+            ap.error("--device-env takes NAME=VALUE, not %r" % kv)
+        device_env[k] = v
+    floor = (16 << 20) if a.wide else MIN_LENGTH
+    if a.length < floor or a.length > DATASET["length"]:
+        ap.error("--length must lie in [%d, %d]" % (floor,
                                                     DATASET["length"]))
     runs = ["host"] + [r for r in RUNS if r in runs and r != "host"]
     if len(runs) > 1:
@@ -373,7 +444,8 @@ def main(argv=None) -> int:
             + [(n, r) for n in runs[1:] for r in repos])
     records, ok, ref = [], True, None
     for name, repo in todo:
-        rec = run_one(name, fa, bam, repo, tags[repo], a.memprof, probe)
+        rec = run_one(name, fa, bam, repo, tags[repo], a.memprof, probe,
+                      a.wide, device_env)
         if rec["rc"] != 0:
             rec["problems"] = ["exited %d" % rec["rc"]]
         elif ref is None:
