@@ -1,0 +1,11 @@
+"""The benchmark's own CPU tests (``python -m pytest benchmark/tests``):
+the repository's root and ``benchmark/`` on the import path."""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BENCH = os.path.dirname(HERE)
+for p in (os.path.dirname(BENCH), BENCH):
+    if p not in sys.path:
+        sys.path.insert(0, p)
