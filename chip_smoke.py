@@ -1182,7 +1182,7 @@ def phase_real_size_mesh() -> dict:
         # over the run; the labels of parallel/pipeline.py)
         say("phases of the mesh run: scan.device %.3f s; in it: %s" % (
             snap.get("scan.device", (0.0,))[0], ", ".join(
-                "%s %.3f s (x%d)" % (k, v[0], v[5])
+                "%s %.3f s (x%d)" % (k, v.wall, v.calls)
                 for k, v in sorted(snap.items()) if k.startswith("mesh."))))
         say("phases of the mesh run: cnv.zscores_dev %.3f s, "
             "cnv.nullmodel_dev %.3f s, call.sv_detect %.3f s" % tuple(

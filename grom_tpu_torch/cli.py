@@ -192,8 +192,9 @@ def _run_one_chromosome(args):
     through the scan (``depth_lists``) and the device bytes its queued
     device jobs' inputs held at most (``queued_jobs``), and under
     GROM_TPU_TIMING=1 the wall seconds of the job's timed phases
-    (``phases``) and the worker's peak RSS at each one's last end
-    (``phase_rss_kib``)."""
+    (``phases``), the worker's peak RSS at each one's last end
+    (``phase_rss_kib``) and the card's running peak there
+    (``phase_card_bytes``)."""
     cfg_json, refid, sub, rstart, rend, part_path = args
     engine, device, mesh = (_WORKER["engine"], _WORKER["device"],
                             _WORKER["mesh"])
@@ -238,10 +239,10 @@ def _run_one_chromosome(args):
                "depth_lists": driver.depth_lists_report(),
                "queued_jobs": driver.queued_jobs_report()}
         if timing.timing_enabled():
-            from grom_tpu_torch.driver import phase_rss_kib
             snap = timing.report(file=io.StringIO())
-            rep["phases"] = {k: v[0] for k, v in snap.items()}
-            rep["phase_rss_kib"] = phase_rss_kib(snap)
+            rep["phases"] = {k: v.wall for k, v in snap.items()}
+            rep["phase_rss_kib"] = driver.phase_rss_kib(snap)
+            rep["phase_card_bytes"] = driver.phase_card_bytes(snap)
         return rep
 
     cfg = GromConfig.from_json(cfg_json)
@@ -418,6 +419,18 @@ def _print_parallel_stats(reports: List[dict]) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    """The command line: one ``run`` span (``utils/timing.py``) around the
+    whole call, which ends with the process's anonymous resident bytes
+    (``anon_bytes``)."""
+    from grom_tpu_torch.utils import peakmem, timing
+    with timing.phase("run") as span:
+        rc = _main(argv)
+        if timing.timing_enabled():
+            span.set(anon_bytes=peakmem.anon_bytes())
+    return rc
+
+
+def _main(argv: Optional[List[str]]) -> int:
     cfg = parse_args(sys.argv[1:] if argv is None else argv)
     if cfg is None:
         return 1

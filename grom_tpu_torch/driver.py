@@ -199,39 +199,48 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
     n_records = 0
     all_ctx: List[str] = []
 
-    for refid, fa_name, creads, sel, chrom in _chromosome_stream(
-            cfg, header, info, jobs, reads, streaming):
-        print(fa_name.lower(), flush=True)   # chromosome progress (src/GROM.c:20908)
-        res = None
-        if creads is None:
-            # big chromosome: bounded-memory chunked streaming (reads are
-            # fetched per genome chunk, never held whole)
-            def fetch(t0, t1, _r=refid):
-                hit = prefetch.pop((_r, t0, t1), None)
-                if hit is not None:
-                    ev, slot = hit
-                    ev.wait()
-                    if "reads" in slot:
-                        return slot["reads"]
-                return bam_mod.read_bam_region(cfg.bam, _r, t0, t1)[1]
-            res = call_chromosome_streamed(chrom, refid, fa_name.lower(),
-                                           cfg, drv, mq_table, hez_table,
-                                           fetch, engine=engine,
-                                           device=device, mesh=mesh)
-            if res is None:   # freak CIGARs overflowed the deposit ring
-                _, creads = bam_mod.read_bam_region(
-                    cfg.bam, refid, 0, int(header.ref_lengths[refid]))
-                sel = np.arange(len(creads.pos))
-        if res is None:
-            res = call_chromosome(chrom, creads, sel, refid,
-                                  fa_name.lower(), cfg, drv, mq_table,
-                                  hez_table, engine=engine, device=device,
-                                  mesh=mesh)
-        rows, ctx_recs = res
-        del creads
-        writer.write_rows(rows)
-        all_ctx.extend(ctx_recs)
-        n_records += len(rows)
+    # one item a job: each contig span takes its job's item, from the
+    # wait for its sequence to the write of its rows
+    stream = _chromosome_stream(cfg, header, info, jobs, reads, streaming)
+    for job_refid, job_name in jobs:
+        with phase("contig", name=job_name,
+                   length=header.ref_lengths[job_refid]):
+            with phase("contig.setup"):
+                refid, fa_name, creads, sel, chrom = next(stream)
+            # chromosome progress (src/GROM.c:20908)
+            print(fa_name.lower(), flush=True)
+            res = None
+            if creads is None:
+                # big chromosome: bounded-memory chunked streaming (reads
+                # are fetched per genome chunk, never held whole)
+                def fetch(t0, t1, _r=refid):
+                    hit = prefetch.pop((_r, t0, t1), None)
+                    if hit is not None:
+                        ev, slot = hit
+                        ev.wait()
+                        if "reads" in slot:
+                            return slot["reads"]
+                    return bam_mod.read_bam_region(cfg.bam, _r, t0, t1)[1]
+                res = call_chromosome_streamed(chrom, refid, fa_name.lower(),
+                                               cfg, drv, mq_table, hez_table,
+                                               fetch, engine=engine,
+                                               device=device, mesh=mesh)
+                if res is None:   # freak CIGARs overflowed the deposit ring
+                    _, creads = bam_mod.read_bam_region(
+                        cfg.bam, refid, 0, int(header.ref_lengths[refid]))
+                    sel = np.arange(len(creads.pos))
+            if res is None:
+                res = call_chromosome(chrom, creads, sel, refid,
+                                      fa_name.lower(), cfg, drv, mq_table,
+                                      hez_table, engine=engine, device=device,
+                                      mesh=mesh)
+            rows, ctx_recs = res
+            del creads
+            with phase("emit.rows"):
+                writer.write_rows(rows)
+            all_ctx.extend(ctx_recs)
+            n_records += len(rows)
+    next(stream, None)   # ends the stream: joins its producer thread
     writer.close()
 
     ctx_path = _ctx_path(cfg.out_vcf)
@@ -250,7 +259,16 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
 def phase_rss_kib(snap: dict) -> Dict[str, int]:
     """Each timed phase's ``livemax`` (``utils/timing.py report``'s
     snapshot): the peak host RSS, in KiB, at the phase's last end."""
-    return {k: v[6] >> 10 for k, v in snap.items()}
+    return {k: v.livemax >> 10 for k, v in snap.items()}
+
+
+def phase_card_bytes(snap: dict) -> Dict[str, int]:
+    """Each timed phase's ``card_peak`` (``utils/timing.py report``'s
+    snapshot): the card's running peak of allocated bytes at the phase's
+    last end; the phases that ended with CUDA initialized. Read in run
+    order, the first phase that shows a new peak is where it grew."""
+    return {k: v.card_peak for k, v in snap.items()
+            if v.card_peak is not None}
 
 
 def depth_lists_report() -> dict:
@@ -282,10 +300,11 @@ def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     """The run's kernel launches (``_build.LAUNCHES``) and its peak host and
     card memory (``utils/peakmem.py``), one JSON line each on stderr:
     ``launches {...}`` and ``peak_memory {...}``, the latter with the
-    timed phases' peaks (``phase_rss_kib``), the pinned host memory of
-    torch's caching host allocator (``pinned``), where the streamed
-    chromosomes' depth lists lived through the scan (``depth_lists``) and
-    the device bytes of their queued jobs' inputs (``queued_jobs``)."""
+    timed phases' peaks (``phase_rss_kib``, ``phase_card_bytes``), the
+    pinned host memory of torch's caching host allocator (``pinned``),
+    where the streamed chromosomes' depth lists lived through the scan
+    (``depth_lists``) and the device bytes of their queued jobs' inputs
+    (``queued_jobs``)."""
     import json
 
     from grom_tpu_torch import _build
@@ -301,6 +320,7 @@ def _print_run_stats(engine: str, device, mesh, snap: dict) -> None:
     print("launches " + json.dumps(dict(_build.LAUNCHES)), file=sys.stderr)
     mem = peakmem.report(devices)
     mem["phase_rss_kib"] = phase_rss_kib(snap)
+    mem["phase_card_bytes"] = phase_card_bytes(snap)
     mem["pinned"] = peakmem.pinned_host(devices)
     mem["depth_lists"] = depth_lists_report()
     mem["queued_jobs"] = queued_jobs_report()
@@ -815,9 +835,11 @@ def _release_free_heap() -> None:
     a detect sub-chunk's host work frees, resident, into the next one's:
     a device engine's scan calls this after each drained sub-chunk and
     each ingest chunk."""
+    from grom_tpu_torch.utils.timing import phase
     trim = _malloc_trim()
     if trim is not None:
-        trim(0)
+        with phase("scan.trim"):
+            trim(0)
 
 
 # A device engine's ingest chunk: at most half the host engine's default
@@ -867,7 +889,7 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
     None when the deposit ring rejects the data (freak CIGARs) — the caller
     redoes the chromosome via the whole-batch path on the same engine."""
     from grom_tpu_torch.call.deposits import DepositsSession
-    from grom_tpu_torch.utils.timing import phase
+    from grom_tpu_torch.utils.timing import carry, phase
 
     if engine is None:
         engine = resolve_engine()
@@ -884,37 +906,42 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         scan_start = max(scan_start, region_start - cfg.sub_region_overlap)
     im = cfg.overlap_mult * drv.insert_max
 
-    dep = DepositsSession(L, out_name, cfg, drv, scan_start, windowed=True)
-    D = int(os.environ.get("GROM_TPU_DETECT_BASES", str(4 << 20)))
-    D = max(min(D, C), dep.back + dep.DRAIN_HALO + 1)
-    C = max(C, D)
+    # the contig's set-up up to its first ingest chunk (driver.run's
+    # contig.setup holds the wait for its sequence)
+    with phase("contig.setup"):
+        dep = DepositsSession(L, out_name, cfg, drv, scan_start,
+                              windowed=True)
+        D = int(os.environ.get("GROM_TPU_DETECT_BASES", str(4 << 20)))
+        D = max(min(D, C), dep.back + dep.DRAIN_HALO + 1)
+        C = max(C, D)
 
-    acc, sv_dev = None, device
-    # whole-chromosome per-base state is ONLY the depth lists (the CNV
-    # engine's inputs — the reference holds the same, src/GROM.c:6605-6664).
-    # A device engine holds them on its device (the mesh engine's on its
-    # collective device) until the scan has ended: on the host they would
-    # add 12 bytes a base to the scan stage's peak
-    lists = rd_mq = rd_hi = rd_lo = None
-    if device_engine:
-        acc, sv_dev = _accumulator(engine, device, mesh)
-        from grom_tpu_torch.ops.state import DepthLists
-        lists = DepthLists(L, acc.coll if mesh_mode else sv_dev)
-        DEPTH_LISTS.append({"where": str(lists.device),
-                            "card_bytes": lists.nbytes})
-    else:
-        rd_mq = np.zeros(L, np.int32)
-        rd_hi = np.zeros(L, np.int32)
-        rd_lo = np.zeros(L, np.int32)
-        DEPTH_LISTS.append({"where": "host", "card_bytes": 0})
-    # the device bytes the inputs of the queued jobs (prepared when their
-    # detect sub-chunk is fed, not yet launched) hold now; the record keeps
-    # their most so far as ``queued_peak``
-    queued = 0
-    rec = DEPTH_LISTS[-1]
+        acc, sv_dev = None, device
+        # whole-chromosome per-base state is ONLY the depth lists (the
+        # CNV engine's inputs — the reference holds the same,
+        # src/GROM.c:6605-6664). A device engine holds them on its device
+        # (the mesh engine's on its collective device) until the scan has
+        # ended: on the host they would add 12 bytes a base to the scan
+        # stage's peak
+        lists = rd_mq = rd_hi = rd_lo = None
+        if device_engine:
+            acc, sv_dev = _accumulator(engine, device, mesh)
+            from grom_tpu_torch.ops.state import DepthLists
+            lists = DepthLists(L, acc.coll if mesh_mode else sv_dev)
+            DEPTH_LISTS.append({"where": str(lists.device),
+                                "card_bytes": lists.nbytes})
+        else:
+            rd_mq = np.zeros(L, np.int32)
+            rd_hi = np.zeros(L, np.int32)
+            rd_lo = np.zeros(L, np.int32)
+            DEPTH_LISTS.append({"where": "host", "card_bytes": 0})
+        # the device bytes the inputs of the queued jobs (prepared when
+        # their detect sub-chunk is fed, not yet launched) hold now; the
+        # record keeps their most so far as ``queued_peak``
+        queued = 0
+        rec = DEPTH_LISTS[-1]
 
-    det = _ChunkDetect(chrom, cfg, drv, mq_table, hez_table, scan_start,
-                       engine=engine, device=sv_dev)
+        det = _ChunkDetect(chrom, cfg, drv, mq_table, hez_table, scan_start,
+                           engine=engine, device=sv_dev)
     scan_native = None     # host tally engine pinned on first chunk
     skipped = 0
     last_pos = -1
@@ -940,7 +967,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         """Drain + queue the oldest fed sub-chunk; run its device job."""
         nonlocal queued
         d0, d1, job, snv_src = fed.pop(0)
-        res = dep.drain(d1)
+        with phase("scan.drain"):
+            res = dep.drain(d1)
         if res is None:
             return False
         dense, ev = res
@@ -991,14 +1019,15 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
         try:
             for k, (f0, f1) in enumerate(ranges):
                 if taken is not None and k > 0:
-                    taken.acquire()
+                    with phase("ingest.producer_wait"):
+                        taken.acquire()
                 with phase("ingest.read_bam"):
                     chunk_q.put((f0, f1, fetch(f0, f1)))
         except BaseException as exc:
             chunk_q.put(exc)
 
     if not sync:
-        prod = threading.Thread(target=chunk_producer,
+        prod = threading.Thread(target=carry(chunk_producer),
                                 name="grom-chunk-ingest", daemon=True)
         prod.start()
 
@@ -1007,7 +1036,8 @@ def call_chromosome_streamed(chrom: np.ndarray, refid: int, out_name: str,
             with phase("ingest.read_bam"):
                 item = (rng[0], rng[1], fetch(rng[0], rng[1]))
         else:
-            item = chunk_q.get()
+            with phase("ingest.wait"):
+                item = chunk_q.get()
             if taken is not None:
                 taken.release()
         if isinstance(item, BaseException):
@@ -1165,25 +1195,29 @@ def _finish_chromosome(chrom, arr, cands, sv_det, ind_det, out_name,
         rows = snv_mod.format_snv_rows(cands, keep, chrom, out_name, cfg,
                                        lseq=drv.read_len)
 
-    dup2 = sv_mod.cluster_paired(sv_det.dup_list, cfg, drv)
-    del2 = sv_mod.cluster_paired(sv_det.del_list, cfg, drv)
-    inv_f2 = sv_mod.cluster_paired(sv_det.inv_f_list, cfg, drv)
-    inv_r2 = sv_mod.cluster_paired(sv_det.inv_r_list, cfg, drv)
-    ins2 = sv_mod.cluster_ins(sv_det.ins_list, cfg, drv)
-    ctx_f2 = sv_mod.cluster_ctx(sv_det.ctx_f_list, cfg, drv)
-    ctx_r2 = sv_mod.cluster_ctx(sv_det.ctx_r_list, cfg, drv)
+    with phase("call.sv_rows"):
+        dup2 = sv_mod.cluster_paired(sv_det.dup_list, cfg, drv)
+        del2 = sv_mod.cluster_paired(sv_det.del_list, cfg, drv)
+        inv_f2 = sv_mod.cluster_paired(sv_det.inv_f_list, cfg, drv)
+        inv_r2 = sv_mod.cluster_paired(sv_det.inv_r_list, cfg, drv)
+        ins2 = sv_mod.cluster_ins(sv_det.ins_list, cfg, drv)
+        ctx_f2 = sv_mod.cluster_ctx(sv_det.ctx_f_list, cfg, drv)
+        ctx_r2 = sv_mod.cluster_ctx(sv_det.ctx_r_list, cfg, drv)
 
-    ins_list, del_list, d_index = (ind_det.ins_list, ind_det.del_list,
-                                   ind_det.d_index)
+        ins_list, del_list, d_index = (ind_det.ins_list, ind_det.del_list,
+                                       ind_det.d_index)
 
-    rows.extend(sv_mod.format_dup_rows(out_name, dup2, cfg))
-    rows.extend(sv_mod.format_inv_rows(out_name, inv_f2, inv_r2, arr, cfg, drv))
-    rows.extend(sv_mod.format_ins_rows(out_name, ins2, cfg))
-    ctx_records = sv_mod.format_ctx_records(out_name, ctx_f2, ctx_r2, cfg)
-    rows.extend(indel_mod.format_indel_rows(chrom, out_name, ins_list,
-                                            del_list, d_index, del2, cfg, drv))
-    rows.extend(sv_mod.format_del_rows(out_name, del2, del_list, d_index,
-                                       cfg, drv))
+        rows.extend(sv_mod.format_dup_rows(out_name, dup2, cfg))
+        rows.extend(sv_mod.format_inv_rows(out_name, inv_f2, inv_r2, arr,
+                                           cfg, drv))
+        rows.extend(sv_mod.format_ins_rows(out_name, ins2, cfg))
+        ctx_records = sv_mod.format_ctx_records(out_name, ctx_f2, ctx_r2,
+                                                cfg)
+        rows.extend(indel_mod.format_indel_rows(chrom, out_name, ins_list,
+                                                del_list, d_index, del2, cfg,
+                                                drv))
+        rows.extend(sv_mod.format_del_rows(out_name, del2, del_list, d_index,
+                                           cfg, drv))
 
     from grom_tpu_torch.ingest.fasta import is_chrx
     from grom_tpu_torch.call import cnv as cnv_mod

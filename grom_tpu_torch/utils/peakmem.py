@@ -54,6 +54,17 @@ def rss_kib() -> Optional[int]:
         return None
 
 
+def anon_bytes() -> Optional[int]:
+    """The anonymous resident bytes: /proc/self/statm's resident less its
+    shared (file-backed) pages, or None."""
+    try:
+        with open("/proc/self/statm") as f:
+            v = f.read().split()
+        return (int(v[1]) - int(v[2])) * _PAGE
+    except (OSError, IndexError, ValueError):
+        return None
+
+
 class _Sampler:
     """A daemon thread keeping the largest ``rss_kib`` it reads."""
 
@@ -114,6 +125,18 @@ def host_peak(status: Optional[str] = None
     if s is not None:
         return s.sample(), "sampled"
     return None, None
+
+
+def running_peak() -> Optional[int]:
+    """The peak resident KiB for a reading at every phase end: where the
+    sampler runs, its peak so far (at most ``SAMPLE_S`` old), with no file
+    read here: a read gives up the interpreter lock, and a busy thread
+    beside it can then hold the reader for several milliseconds.
+    Elsewhere ``host_peak``'s reading."""
+    s = _sampler
+    if s is not None:
+        return s.peak
+    return host_peak()[0]
 
 
 def card_peak(devices: Iterable = ()) -> Optional[dict]:

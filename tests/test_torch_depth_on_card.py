@@ -254,6 +254,8 @@ def test_peak_memory_line_reports_depth_lists(engine, tmp_path, monkeypatch,
     assert len(lines) == 1
     mem = lines[0]
     assert mem["pinned"] is None and mem["card"] is None
+    # no CUDA context: no phase ended with a card reading
+    assert mem["phase_card_bytes"] == {}
     L = 200_000
     if engine == "host":
         assert mem["depth_lists"] == {"scan": ["host"], "card_bytes": 0,

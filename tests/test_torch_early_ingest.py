@@ -3,9 +3,7 @@ imports of the port.
 
 * Every import of a ``grom_tpu_torch`` module in the port resolves to a
   module of the port, or to a name one of its modules defines (an AST
-  scan, one case per file). None is dead: ``utils/timing.py``'s slab
-  pool probes, which imported grom_tpu's slab allocator (``_hugealloc``),
-  read the peak host RSS instead.
+  scan, one case per file). None is dead.
 * With the port's native library built, ``_earlyingest.start`` then
   ``take`` on ds200k gives the whole file inflated; without it, no hit and
   nothing is built.

@@ -46,13 +46,10 @@ MERGED = {
     "native.py": ("native/__init__.py", {"DepOut", "_bind", "_c_long_p",
                                          "_u8_p"}),
     "call/cnv.py": ("call/cnv.py", None),
-    "utils/timing.py": ("utils/timing.py", None),
 }
 # the port's own definitions of the modules merged with None: call/cnv.py's
-# device branch, and the slab pool probes of utils/timing.py, which read
-# the peak host RSS (utils/peakmem.py) instead
-OWN = {"call/cnv.py": {"detect_del_dup", "call_cnv"},
-       "utils/timing.py": {"_pool_acquired", "_pool_live_max"}}
+# device branch
+OWN = {"call/cnv.py": {"detect_del_dup", "call_cnv"}}
 
 _IMPORT = re.compile(r"^(\s*(?:from|import)\s+)grom_tpu\b", re.M)
 
@@ -100,30 +97,6 @@ def test_merged_module_keeps_copied_definitions(path):
     for name in sorted(names):
         assert name in got, "%s: %s is missing" % (path, name)
         assert got[name] == ref[name], "%s: %s drifted" % (path, name)
-
-
-def _without(src: str, names) -> str:
-    """``src`` with the source of each top-level definition in ``names``
-    cut out."""
-    defs = _defs(src)
-    for name in names:
-        src = src.replace(defs[name], "")
-    return src
-
-
-def test_timing_differs_only_in_its_probes():
-    """utils/timing.py is grom_tpu's, character for character, outside the
-    two slab pool probes; and the port's live-max probe reads the peak
-    host RSS."""
-    from grom_tpu_torch.utils import peakmem, timing
-    own = OWN["utils/timing.py"]
-    ref = _read("grom_tpu", "utils", "timing.py")
-    got = _read("grom_tpu_torch", "utils", "timing.py")
-    assert _without(got, own) == _without(port_form(ref), own)
-    assert timing._pool_acquired() == 0
-    kib, _ = peakmem.host_peak()
-    if kib is not None:
-        assert timing._pool_live_max() >= kib << 10
 
 
 def _every_flag():

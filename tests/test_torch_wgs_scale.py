@@ -331,8 +331,8 @@ def _livemax_mib(stderr):
             on = True
             continue
         t = ln.split()
-        if on and len(t) == 8 and t[1].endswith("s") and t[6].endswith("M"):
-            out[t[0]] = int(t[6][:-1])
+        if on and len(t) == 7 and t[1].endswith("s") and t[5].endswith("M"):
+            out[t[0]] = int(t[5][:-1])
     return out
 
 
