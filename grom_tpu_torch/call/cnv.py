@@ -694,7 +694,8 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
         # the port's kernels (ops/cnv_device.py, csrc/cnv.cu) on ``device``:
         # z-scores (mapq weight included), the null model and the per-seed
         # window math, bitwise equal to the native path below. The repeat
-        # rescore, the outer walk and the copy number stay on the host.
+        # rescore, the outer walk (compiled: csrc/cnv_walk.c) and the copy
+        # number stay on the host.
         import torch
 
         from grom_tpu_torch.ops import cnv_device, state
@@ -736,13 +737,15 @@ def detect_del_dup(chrom: np.ndarray, feats: RefFeatures, prep: CnvPrep,
                 _repeat_rescore(feats, prep, depth, low_acgt, acgt,
                                 stdev_list, pv_p, pv_sd, cfg, m, rng)
         scan_blocks = [(m - 1, L - W)]
-        with _ph0("cnv.winscan_dev"):
+        with _ph0("cnv.winscan_dev") as span:
+            walk = dict.fromkeys(cnv_device.WALK_COUNTS, 0)
             dels = cnv_device.window_scan(scan_blocks, depth, mq, gc, nwin,
                                           low_acgt, stdev_list, del_thr,
-                                          win_std, cfg, L, +1, device)
+                                          win_std, cfg, L, +1, device, walk)
             dups = cnv_device.window_scan(scan_blocks, depth, mq, gc, nwin,
                                           low_acgt, stdev_list, dup_thr,
-                                          win_std, cfg, L, -1, device)
+                                          win_std, cfg, L, -1, device, walk)
+            span.set(**walk)
         with _ph0("cnv.copynum"):
             _copy_number(dels, dups, depth, mq, gc, low_acgt, ave, ploidy,
                          cfg)

@@ -252,7 +252,7 @@ def _run_one_chromosome(args):
     drv = DerivedConfig.from_insert_stats(cfg, ins.insert_mean, ins.insert_min,
                                           ins.insert_max, ins.read_len,
                                           ins.mapped_read_bases)
-    header = bam_mod.read_bam_header(cfg.bam)
+    header = driver.bam_header(cfg.bam)
     bam_name = header.ref_names[refid]
     fa_name = fasta_mod.match_chromosome(bam_name, info.names)
     if fa_name is None:
@@ -318,9 +318,8 @@ def run_parallel(cfg: GromConfig, engine: Optional[str] = None,
     from grom_tpu_torch import _build, native
     from grom_tpu_torch.call.ctx import write_ctx_vcf
     from grom_tpu_torch.config import DerivedConfig
-    from grom_tpu_torch.driver import (_ctx_path, check_device, device_stages,
-                                       resolve_engine)
-    from grom_tpu_torch.ingest import bam as bam_mod
+    from grom_tpu_torch.driver import (_ctx_path, bam_header, check_device,
+                                       device_stages, resolve_engine)
     from grom_tpu_torch.ingest.insert_size import load_or_estimate
     from grom_tpu_torch.vcfio.writer import VcfWriter
 
@@ -342,7 +341,7 @@ def run_parallel(cfg: GromConfig, engine: Optional[str] = None,
             _build.build_all()
     native.get_lib()
 
-    header = bam_mod.read_bam_header(cfg.bam)
+    header = bam_header(cfg.bam)
     if os.path.exists(cfg.bam + ".bai"):
         # bounded-memory insert estimation (stops at the 10M-record sample);
         # writes the cache the workers read

@@ -131,6 +131,19 @@ def _accumulator(engine: str, device, mesh=None):
     return TorchAccumulator(device), torch.device(device)
 
 
+def bam_header(path: str):
+    """``path``'s header. An indexed BAM's comes from the reader that its
+    region fetches share (``ingest/bam.py _cached_reader``), not from
+    ``read_bam_header``: that opens a reader of its own, whose copy of a
+    BAM under ``GROM_TPU_SRC_MMAP_MIN`` bytes stays in
+    ``utils/bufpool.POOL``, which nothing returns (a BAM's size of host
+    memory a call, for the life of the process)."""
+    bai = bam_mod.find_bai(path)
+    if bai is None:
+        return bam_mod.read_bam_header(path)
+    return bam_mod._cached_reader(path, bai)[1]
+
+
 def run(cfg: GromConfig, file_date: Optional[str] = None,
         engine: Optional[str] = None, device="cuda",
         mesh=None) -> RunResult:
@@ -161,7 +174,7 @@ def run(cfg: GromConfig, file_date: Optional[str] = None,
     reads = None
     prefetch: Dict[Tuple[int, int, int], object] = {}
     if streaming:
-        header = bam_mod.read_bam_header(cfg.bam)
+        header = bam_header(cfg.bam)
         jobs = _chromosome_jobs(cfg, header, info)
         # the prefetched chunk is the host engine's first: a device engine
         # whose first chunk is capped below it would never take it
@@ -399,7 +412,7 @@ def run_child_region(cfg: GromConfig, engine: str = "host",
     (src/GROM.c:20676-20692)."""
     refid, sub, rstart, rend = (int(x) for x in cfg.one_chromosome.split(","))
     info = fasta_mod.index_fasta(cfg.ref_fasta)
-    header = bam_mod.read_bam_header(cfg.bam)
+    header = bam_header(cfg.bam)
     ins = load_or_estimate(cfg.bam, None, cfg)
     drv = DerivedConfig.from_insert_stats(cfg, ins.insert_mean, ins.insert_min,
                                           ins.insert_max, ins.read_len,

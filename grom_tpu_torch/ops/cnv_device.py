@@ -19,8 +19,10 @@ beside it — and both are held to the host engine's bits:
   in batches of ``NULL_BATCH`` segments on the card with no host round
   trip between them.
 
-``window_scan`` is the host outer walk of grom_tpu's ``window_scan_device``
-(seed acceptance order, jumps, slide, trim) over ``seed_eval``'s outcomes.
+``window_scan`` is the outer walk of grom_tpu's ``window_scan_device``
+(seed acceptance order, jumps, slide, trim) over ``seed_eval``'s outcomes:
+compiled host C (``csrc/cnv_walk.c``) that returns to Python only for a
+``seed_eval`` batch or an emitted call.
 """
 
 from __future__ import annotations
@@ -585,7 +587,7 @@ def seed_eval(si: SeedInputs, seeds, seed_cls, minw: int, maxw: int,
 
 
 # positions a block of seed_inputs' temporaries covers, and a block of the
-# walk's candidate search and of its candidate index (4 bytes a position)
+# walk's candidate search
 SEED_INPUT_BLOCK = 1 << 22
 WALK_BLOCK = 1 << 22
 
@@ -661,15 +663,6 @@ def walk_candidates(flags: np.ndarray, bs: int, be: int) -> np.ndarray:
     return cand
 
 
-def _walk_index(cand: np.ndarray, w0: int, w1: int) -> memoryview:
-    """Position - w0 -> index in ``cand`` over [w0, w1) (-1 elsewhere):
-    4 bytes a position, no Python object a candidate."""
-    a, b = np.searchsorted(cand, (w0, w1))
-    idx = np.full(w1 - w0, -1, np.int32)
-    idx[cand[a:b] - w0] = np.arange(a, b, dtype=np.int32)
-    return memoryview(idx)
-
-
 class _Bit:
     """p -> bit ``bit`` of the flag byte at p (0 or the bit): the walk's
     lowa/sok0/sok1 as ``_slide_phase`` and ``_trim_phase`` index them."""
@@ -700,17 +693,43 @@ class _Negated:
 # every seed it evaluates, and smaller batches skip the seeds inside calls.
 SEED_BATCH = {"cuda": 1 << 16, "cpu": 1 << 10}
 
+# gw_walk's events (csrc/cnv_walk.c)
+WALK_DONE, WALK_BATCH, WALK_CALL = 0, 1, 2
+# what ``window_scan`` counts: positions the compiled walk stood on, its
+# returns to Python, seed_eval launches, calls emitted
+WALK_COUNTS = ("bases", "resumes", "batches", "calls")
+
+
+class _Walk(ctypes.Structure):
+    """Mirrors gw_walk_t in csrc/cnv_walk.c: the walk's state over a block,
+    kept between its returns to Python."""
+    _fields_ = [("pos", ctypes.c_int64), ("be", ctypes.c_int64),
+                ("ci", ctypes.c_int64), ("bases", ctypes.c_int64),
+                ("lo", ctypes.c_int64 * 2), ("hi", ctypes.c_int64 * 2),
+                ("res", ctypes.c_void_p * 2),
+                ("mq_index", ctypes.c_int32), ("cls", ctypes.c_int32)]
+
+
+@functools.cache
+def _walk_lib() -> ctypes.CDLL:
+    lib = _build.host_library("cnv_walk")
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    lib.gw_walk.restype = ctypes.c_int
+    lib.gw_walk.argtypes = [P, P, I64, I64, ctypes.POINTER(_Walk)]
+    return lib
+
 
 def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
-                win_std, cfg, L, side: int, device) -> list:
+                win_std, cfg, L, side: int, device, counts=None) -> list:
     """Drop-in for call/cnv._window_scan with the per-seed window math in
     ``seed_eval``: candidate seeds are evaluated in batches, from the first
     seed the walk needs onward and in the outer class it needs there, and
-    the host outer walk consumes the outcomes in the reference's order
-    (jump/suppression after each emitted call), keeping the rare
-    slide/trim phases sequential. Its host state is ``seed_inputs``' 5
-    bytes a base, the candidates (4 bytes each) and a ``WALK_BLOCK``
-    window of the candidate index."""
+    the outer walk (``csrc/cnv_walk.c``) consumes the outcomes in the
+    reference's order (jump/suppression after each emitted call), handing
+    back to Python only to launch a batch or to run an emitted call's rare
+    slide/trim phases. Its host state is ``seed_inputs``' 5 bytes a base,
+    the candidates (4 bytes each) and each outer class's current batch.
+    ``counts``, a dict, gets ``WALK_COUNTS`` added to its values."""
     from grom_tpu_torch.call.cnv import CnvCall, _slide_phase, _trim_phase
     from grom_tpu_torch.utils.timing import phase
 
@@ -721,10 +740,20 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
     flags, gcls_idx = seed_inputs(depth, mq, gc, low_acgt, thr, cfg, L, side)
     si = device_seed_inputs(flags, stdev_list, win_std, side, device)
     batch = SEED_BATCH[torch.device(device).type]
+    walk = _walk_lib().gw_walk
     fl, gi = memoryview(flags), memoryview(gcls_idx)
     lowa = _Bit(fl, F_LOWA)
     sok0, sok1 = _Bit(fl, F_SOK0), _Bit(fl, F_SOK1)
-    svals = stdev_list if side > 0 else _Negated(stdev_list)
+    # the slide and trim phases read these a base at a time: memoryviews,
+    # a dict and a list hand back Python numbers (the same values and f64
+    # bits) at a third of the cost of numpy's scalar indexing
+    mq_v, depth_v, gc_v = memoryview(mq), memoryview(depth), memoryview(gc)
+    z = memoryview(stdev_list)
+    svals = z if side > 0 else _Negated(z)
+    nwin_d = {(c, g): int(nwin[c, g]) for c in range(nwin.shape[0])
+              for g in range(nwin.shape[1])}
+    win_std_l = win_std.tolist()
+    n = dict.fromkeys(WALK_COUNTS, 0)
 
     for (bs, be0) in blocks:
         be = be0 - minw
@@ -733,11 +762,10 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
         cand = walk_candidates(flags, bs, be)
         if not len(cand):
             continue
-        batches = {0: (0, 0, None), 1: (0, 0, None)}
 
         def evaluate(i0, cls):
             """Outcomes of candidates [i0, i0 + batch) in outer class
-            ``cls``."""
+            ``cls``: int64 [5, n] (``pack_outcomes``' rows)."""
             i1 = min(i0 + batch, len(cand))
             with phase("cnv.seed_eval_dev"):
                 seeds = torch.from_numpy(cand[i0:i1].astype(np.int64)).to(
@@ -745,53 +773,50 @@ def window_scan(blocks, depth, mq, gc, nwin, low_acgt, stdev_list, thr,
                 cls_t = torch.full((i1 - i0,), cls, dtype=torch.int8,
                                    device=device)
                 # one copy back per launch
-                r = [x.numpy() for x in unpack_outcomes(seed_eval(
-                    si, seeds, cls_t, minw, maxw, max_low, be).cpu())]
-            return i0, i1, r
+                return np.ascontiguousarray(seed_eval(
+                    si, seeds, cls_t, minw, maxw, max_low, be).cpu().numpy(),
+                    np.int64)
 
-        # host outer walk (reference order; src/GROM.c:19358-19380)
-        mq_index = 0
-        pos = bs
-        w0 = w1 = bs    # the candidate index covers [w0, w1)
-        while pos < be:
-            f = fl[pos]
-            if f & F_DEF:
-                mq_index = 1 if f & F_CLS1 else 0
-            if not f & (F_SOK1 if mq_index else F_SOK0):
-                pos += 1
+        # the outer walk (reference order; src/GROM.c:19358-19380)
+        res = [None, None]      # each class's batch, alive while C reads it
+        w = _Walk(pos=bs, be=be)
+        while True:
+            ev = walk(flags.ctypes.data, cand.ctypes.data, len(cand), minw,
+                      ctypes.byref(w))
+            n["resumes"] += 1
+            if ev == WALK_DONE:
+                break
+            cls, i = w.cls, w.ci
+            if ev == WALK_BATCH:
+                res[cls] = r = evaluate(i, cls)
+                w.lo[cls], w.hi[cls] = i, i + r.shape[1]
+                w.res[cls] = r.ctypes.data
+                n["batches"] += 1
                 continue
-            if pos >= w1:
-                w0, w1 = pos, min(pos + WALK_BLOCK, be)
-                pos_to_i = _walk_index(cand, w0, w1)
-            i = pos_to_i[pos - w0]
-            b_lo, b_hi, res = batches[mq_index]
-            if not b_lo <= i < b_hi:
-                b_lo, b_hi, res = batches[mq_index] = evaluate(i, mq_index)
-            k = i - b_lo
-            f1, begin, c_end, c_sd, n = (int(res[0][k]), bool(res[1][k]),
-                                         int(res[2][k]), float(res[3][k]),
-                                         int(res[4][k]))
-            if f1 < minw:
-                pos = pos + f1 + 1
-                continue
-            stop_base = f1 < n or n < maxw
-            lp = pos + f1 if f1 < n else pos + n - 1
+            # WALK_CALL: the seed at pos begins a call
+            pos, r, k = w.pos, res[cls], i - w.lo[cls]
+            f1, c_end, c_sd, nw = (int(r[0, k]), int(r[2, k]),
+                                   float(r[3].view(np.float64)[k]),
+                                   int(r[4, k]))
+            stop_base = f1 < nw or nw < maxw
+            lp = pos + f1 if f1 < nw else pos + nw - 1
             q = gi[lp]
             # the class of the last gated-definite base in [pos, lp]
-            mqi = (1 if fl[q] & F_CLS1 else 0) if q >= pos else mq_index
-            last_good = c_end if begin else 0
-            if not stop_base and begin:
-                c_end, c_sd, last_good, mqi = _slide_phase(
-                    pos, maxw, L, maxw + 500, last_good, c_end, c_sd, mqi,
-                    mq, depth, lowa, nwin, gc, svals, win_std, cfg,
-                    3.0, max_low)
-            if begin:
-                c_end, _ = _trim_phase(pos, c_end, minw, mqi, mq, depth,
-                                       lowa, sok0, sok1, cfg, max_low)
-                out.append(CnvCall(pos, c_end, c_sd))
-                pos = c_end + 2
-            else:
-                pos += 1
+            mqi = (1 if fl[q] & F_CLS1 else 0) if q >= pos else cls
+            if not stop_base:
+                c_end, c_sd, _, mqi = _slide_phase(
+                    pos, maxw, L, maxw + 500, c_end, c_end, c_sd, mqi,
+                    mq_v, depth_v, lowa, nwin_d, gc_v, svals, win_std_l,
+                    cfg, 3.0, max_low)
+            c_end, _ = _trim_phase(pos, c_end, minw, mqi, mq_v, depth_v,
+                                   lowa, sok0, sok1, cfg, max_low)
+            out.append(CnvCall(pos, c_end, c_sd))
+            n["calls"] += 1
+            w.pos = c_end + 2
+        n["bases"] += w.bases
+    if counts is not None:
+        for k, v in n.items():
+            counts[k] += v
     return out
 
 

@@ -7,6 +7,7 @@ test_wgs_scale.py for grom_tpu_torch.
   ratio a chromosome of 134,217,728 bases or more gets, scaled down),
   C = 2 D, and one chunk holding the whole chromosome; each byte-identical
   to the port's host engine at its default geometry.
+* Runs in one process hold no more of the buffer pool than the first.
 * The peak-memory reader (utils/peakmem.py): VmHWM where the status text
   has it, else the sampler, labelled ``sampled``; the sampled peak of a
   process that allocates 256 MB and frees it; no card peak on the CPU;
@@ -77,6 +78,20 @@ def test_chunk_geometry_matches_host(geometry, host_run, tmp_path,
     assert _body(out) == _body(host_run)
     assert _body(str(out)[:-4] + ".ctx.vcf") == \
         _body(str(host_run)[:-4] + ".ctx.vcf")
+
+
+def test_runs_in_one_process_hold_no_more_pooled_memory(tmp_path,
+                                                        monkeypatch):
+    """Three runs of the driver in one process on cnvrich (indexed, under
+    GROM_TPU_SRC_MMAP_MIN): the buffer pool holds no more after the third
+    than after the first. Each run's header read used to leave a copy of
+    the whole BAM there, which nothing returned."""
+    from grom_tpu_torch.utils.bufpool import POOL
+    held = []
+    for i in range(3):
+        _run(tmp_path / ("%d.vcf" % i), "host", monkeypatch)
+        held.append(sum(b.nbytes for b in POOL._used))
+    assert held[2] == held[0], held
 
 
 def _batch(fx="cnvrich"):

@@ -22,6 +22,9 @@ events (``events``), to ``<out>/span_idle.<workload>.<seed>.json``
   led by the span open at its midpoint (``benchmark/spantree.py``);
 * the three span metrics of the cell's traced line, the passes' walls and
   anonymous bytes, and the spans a pass;
+* ``walk``: the CNV walk's counts over the window, summed over the
+  ``cnv.winscan_dev`` spans' attributes (``bases``, ``resumes``,
+  ``batches``, ``calls``; 0 where the spans carry none);
 * ``span_ns``: what one empty span costs on the main thread with timing
   on and CUDA initialized, and with timing off (the mean of 20,000).
 
@@ -81,6 +84,7 @@ def analyse(evs, base: int, iv) -> dict:
     metrics = {name: harness.metric_reader(name)(dict(mb=mb))
                for name in ("ingest_wait.s_per_mb", "fixed.s_per_contig",
                             "run_growth.mib_per_run")}
+    walks = spantree.labelled(evs, "cnv.winscan_dev")
     by_value = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1]))
     return dict(
         window_s=window_s, passes=len(runs),
@@ -93,6 +97,8 @@ def analyse(evs, base: int, iv) -> dict:
         copies_by_span=by_value(copies),
         self_by_span=by_value(spantree.self_seconds(evs)),
         idle_gaps=spantree.named_gaps(iv, evs, base),
+        walk={k: sum(e["attrs"].get(k, 0) for e in walks)
+              for k in ("bases", "resumes", "batches", "calls")},
         metrics=metrics)
 
 
