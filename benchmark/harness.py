@@ -8,11 +8,16 @@ one warm-up pass calls the genome, which also writes the sidecar caches a
 second run of a BAM finds.
 
 The window: ``grom_tpu_torch.cli.main`` in-process, one pass calling every
-contig of the genome serially, passes back to back until ``--seconds``
-have passed; the pass in flight finishes. The card's peak counters are
-reset at its start and this file's sampler reads the process's anonymous
-resident memory every 20 ms. With ``--trace 1`` the port's phase timing is
-on, and the card's activity is traced by ``torch.profiler``.
+contig of the genome (serially, or in the worker processes of the
+traffic's ``-P``), passes back to back until ``--seconds`` have passed;
+the pass in flight finishes. The card's peak counters are reset at its
+start and this file's sampler reads the anonymous resident memory of this
+process and of every live descendant every 20 ms. With ``--trace 1`` the
+port's phase timing is on, and the card's activity is traced by
+``torch.profiler``. A worker the pass spawns is measured by the
+benchmark's probe in it (``workerprobe.py``): its card peak, and in the
+traced run its CUDA activity and span events, for the part of the window
+it lived in. A worker whose record never comes gives no result.
 
 After the window: the rows of every pass are judged by the plain reference
 (``plainref.py``); the last line on standard output is the result.
@@ -33,12 +38,18 @@ import tempfile
 import threading
 import time
 from contextlib import contextmanager
-from typing import List, Optional
+from typing import Dict, Iterable, List, Optional, Set
+
+import workerprobe
+
+# in a worker process that a pass spawns, this module is imported again
+# (run.py is the parent's main script): start the benchmark's probe there
+workerprobe.install()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 GIB = float(1 << 30)
-FORBIDDEN = ("jax", "jaxlib", "flax", "grom_tpu")
+PAGE = os.sysconf("SC_PAGE_SIZE")
 LIMITS = {"rows_wrong": 0}
 # a configuration's keys: what the generator draws the reads by, what the
 # harness checks or sets, and what only documents the deployment
@@ -98,36 +109,105 @@ def contig_specs(config: dict, traffic: dict, seed: int) -> List[dict]:
     return out
 
 
+def anon_bytes(pid="self") -> int:
+    """Anonymous resident bytes of a process: statm's resident less shared
+    pages; 0 for a descendant that has ended."""
+    try:
+        with open("/proc/%s/statm" % pid) as f:
+            v = f.read().split()
+    except OSError:
+        if pid == "self":
+            raise
+        return 0
+    return (int(v[1]) - int(v[2])) * PAGE
+
+
+def has_children() -> bool:
+    """Whether this process has a child, running or not yet reaped: one
+    system call, which reaps nothing."""
+    try:
+        os.waitid(os.P_ALL, 0, os.WEXITED | os.WNOHANG | os.WNOWAIT)
+        return True
+    except ChildProcessError:
+        return False
+
+
+def descendants(root: int) -> Set[int]:
+    """The pids of the live (not zombie) descendants of ``root``, found by
+    each process's parent in ``/proc/<pid>/stat``."""
+    kids: Dict[int, List[int]] = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % name) as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, IndexError, ValueError):
+            continue
+        if state != "Z":
+            kids.setdefault(int(ppid), []).append(int(name))
+    out: Set[int] = set()
+    todo = [root]
+    while todo:
+        for pid in kids.get(todo.pop(), ()):
+            if pid not in out:
+                out.add(pid)
+                todo.append(pid)
+    return out
+
+
+def cmdline(pid: int) -> str:
+    try:
+        with open("/proc/%d/cmdline" % pid, "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace")
+    except OSError:
+        return ""
+
+
 class AnonSampler:
-    """The peak of this process's anonymous resident memory (statm's
-    resident less shared pages), read every ``period`` seconds."""
+    """The peak of the anonymous resident memory of this process and every
+    live descendant, summed at each read, read every ``period`` seconds;
+    beside it this process's own peak, and each descendant seen with its
+    command line. Descendants are looked for only while this process has
+    a child, so a process without one reads as it alone."""
 
     def __init__(self, period: float = 0.02):
         self.period = period
-        self.page = os.sysconf("SC_PAGE_SIZE")
-        self.peak = 0
+        self.root = os.getpid()
+        self.peak = self.own_peak = 0
+        self.seen: Dict[int, str] = {}
         self._stop = threading.Event()
         self._t = threading.Thread(target=self._loop, daemon=True,
                                    name="bench-anon")
 
-    def read(self) -> int:
-        with open("/proc/self/statm") as f:
-            v = f.read().split()
-        return (int(v[1]) - int(v[2])) * self.page
+    def sample(self) -> None:
+        own = total = anon_bytes()
+        if has_children():
+            for pid in descendants(self.root):
+                total += anon_bytes(pid)
+                if pid not in self.seen:
+                    self.seen[pid] = cmdline(pid)
+        self.own_peak = max(self.own_peak, own)
+        self.peak = max(self.peak, total)
+
+    def spawned(self) -> Set[int]:
+        """The descendants seen that ``multiprocessing`` spawned."""
+        return {pid for pid, cmd in self.seen.items()
+                if workerprobe.SPAWNED in cmd}
 
     def _loop(self):
         while not self._stop.is_set():
-            self.peak = max(self.peak, self.read())
+            self.sample()
             self._stop.wait(self.period)
 
     def start(self):
-        self.peak = self.read()
+        self.sample()
         self._t.start()
 
     def stop(self) -> int:
         self._stop.set()
         self._t.join()
-        self.peak = max(self.peak, self.read())
+        self.sample()
         return self.peak
 
 
@@ -166,11 +246,6 @@ def generate(prefix: str, specs: List[dict]):
     return got["fasta"], got["bam"], got["contigs"]
 
 
-def forbidden_modules() -> List[str]:
-    return sorted({m.split(".")[0] for m in list(sys.modules)}
-                  & set(FORBIDDEN))
-
-
 def metric_reader(name: str):
     spec = importlib.util.spec_from_file_location(
         "bench_metric_" + name.replace(".", "_"),
@@ -205,6 +280,36 @@ def judge_passes(outs: List[str], specs: List[dict], grom: dict) -> tuple:
             d["pass_rows_differ"] += len(set(a) ^ set(b)) + abs(
                 len(a) - len(b))
     return wrong + d["pass_rows_differ"], d
+
+
+def window_faults(records: List[dict], missing: List[int],
+                  spawned: Iterable[int]) -> List[str]:
+    """Why a window gives no result: a worker's record that never came, a
+    spawned descendant without the probe, a forbidden module in this
+    process or in a worker."""
+    out = []
+    if missing:
+        out.append("no record from worker(s) %s" % missing)
+    bare = sorted(set(spawned) - {r["pid"] for r in records} - set(missing))
+    if bare:
+        out.append("worker(s) %s ran without the probe" % bare)
+    found = set(workerprobe.forbidden_modules())
+    for r in records:
+        found |= set(r["forbidden"])
+    if found:
+        out.append("modules %s were loaded" % ", ".join(sorted(found)))
+    return out
+
+
+def fullest_card(on_card: List[tuple]) -> int:
+    """The most card memory that processes alive at once held on one card:
+    of ``(card, born_ns, ended_ns, peak_bytes)`` a process, the sum of the
+    peaks of those on one card whose lives overlap the start of one of
+    them, at its largest (0 where none ran on a card). A pool that spawns
+    its workers for each pass sums one pass's workers, not every pass's."""
+    return max((sum(p for c2, b2, e2, p in on_card
+                    if c2 == c and b2 <= b < e2)
+                for c, b, _, _ in on_card), default=0)
 
 
 def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
@@ -248,6 +353,11 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
     work = tempfile.mkdtemp(prefix="grom-bench-",
                             dir=os.environ.get("TMPDIR") or None)
     log = os.path.join(work, "program.log")
+    # the workers' probes (workerprobe.py) report here; set before the
+    # warm-up pass, so a pool alive from it into the window is measured too
+    probes = os.path.join(work, "probes")
+    os.mkdir(probes)
+    os.environ[workerprobe.ENV] = probes
     try:
         specs = contig_specs(config, traffic, args.seed)
         t0 = time.perf_counter()
@@ -282,7 +392,10 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
         t0 = time.perf_counter()
         warm_rc = one_pass(os.path.join(work, "warm.vcf"))
         warm_s = time.perf_counter() - t0
-        if cuda:
+        # the card's counters and trace of this process, where the program
+        # made a CUDA context in it (the parent of -P workers makes none)
+        own_cuda = cuda and torch.cuda.is_initialized()
+        if own_cuda:
             torch.cuda.synchronize()
         setup_s = time.perf_counter() - t_setup
 
@@ -293,13 +406,16 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
             timing.timing_enable(True)
             timing.reset()
             _build.reset_launches()
-            if cuda:
+            if own_cuda:
                 from torch.profiler import ProfilerActivity, profile
                 prof = profile(activities=[ProfilerActivity.CUDA])
                 prof.__enter__()
-        if cuda:
+        if own_cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+        window = workerprobe.Window(probes, lambda: descendants(os.getpid()))
+        window.open(bool(args.trace))
+        t_open = time.time_ns()
         sampler = AnonSampler()
         sampler.start()
         anon_start = sampler.peak
@@ -313,28 +429,48 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
             failed += rc != 0
             if rc != 0 or time.perf_counter() - w0 >= args.seconds:
                 break
-        if cuda:
+        if own_cuda:
             torch.cuda.synchronize()
         window_s = time.perf_counter() - w0
+        t_close = time.time_ns()
         anon_peak = sampler.stop()
-        card_peak = torch.cuda.max_memory_allocated() if cuda else None
+        records, missing = window.close()
+        own_card = torch.cuda.current_device() if own_cuda else None
+        # (card, born, ended, peak allocated bytes) of each process on a card
+        on_card = [(r["card"], r["born_ns"], r["end_ns"], r["card_peak"])
+                   for r in records if r["card_peak"] is not None]
+        if own_cuda:
+            on_card.append((own_card, t_open, t_close,
+                            torch.cuda.max_memory_allocated()))
+        traces = [(r["trace"], r["card"], r["pid"]) for r in records
+                  if r["trace"]]
         if prof is not None:
             prof.__exit__(None, None, None)
             prof.export_chrome_trace(trace_path)
             prof = None
-        spans = {}
+            traces.insert(0, (trace_path, own_card, os.getpid()))
+        spans, events = {}, None
         if args.trace:
+            import spantree
             snap = timing.report(file=io.StringIO())
             spans = {k: v[0] for k, v in snap.items()}
+            events = spantree.events()
             timing.timing_enable(False)
+            theirs = [dict(e, pid=r["pid"], card=r["card"])
+                      for r in records for e in r["events"] or ()]
+            for e in theirs:
+                spans[e["label"]] = (spans.get(e["label"], 0.0)
+                                     + spantree.seconds(e))
+            if events is not None or theirs:
+                events = [dict(e, pid=os.getpid(), card=own_card)
+                          for e in events or ()] + theirs
         launches = dict(_build.LAUNCHES)
-        found = forbidden_modules()
-        if found:
-            print("no result: modules %s were loaded" % ", ".join(found),
-                  file=sys.stderr)
+        faults = window_faults(records, missing, sampler.spawned())
+        if faults:
+            print("no result: " + "; ".join(faults), file=sys.stderr)
             return 3
         gc.collect()
-        if cuda:
+        if own_cuda:
             torch.cuda.empty_cache()
 
         # ---- the check ----
@@ -351,12 +487,19 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
                       failed=failed, metrics={})
         names = {m["name"]: m for m in
                  (cell["per_layer"] if args.trace else cell["end_to_end"])}
+        card_peak = max((p[3] for p in on_card), default=None)
         if args.trace:
             import devtrace
-            iv = devtrace.device_intervals(trace_path) if cuda else []
-            ctx = dict(spans=spans, mb=mb, window_s=window_s,
-                       intervals=iv, launches=launches, passes=len(outs),
-                       contigs=info,
+            base_ns, rows = devtrace.merge(
+                [devtrace.read_trace(*t) for t in traces])
+            iv = [r[:4] for r in rows]
+            cards = devtrace.by_card(rows, range(chips))
+            if events is not None:
+                events = [dict(e, start_ns=e["start_ns"] - base_ns,
+                               end_ns=e["end_ns"] - base_ns) for e in events]
+            ctx = dict(spans=spans, events=events, mb=mb,
+                       window_s=window_s, intervals=iv, cards=cards,
+                       launches=launches, passes=len(outs), contigs=info,
                        peaks=json.load(open(os.path.join(HERE,
                                                          "peaks.json"))))
             for name, m in names.items():
@@ -366,7 +509,8 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
         else:
             values = dict(called_mb_per_s=mb / window_s,
                           peak_host_anon_gib=anon_peak / GIB,
-                          card_peak_gib=(card_peak / GIB if cuda else None),
+                          card_peak_gib=(card_peak / GIB
+                                         if card_peak is not None else None),
                           setup_s=setup_s)
             for name, m in names.items():
                 if values.get(name) is not None:
@@ -375,13 +519,13 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
         if cuda:
             result["device"] = dict(
                 platform="gpu", kind=torch.cuda.get_device_name(0),
-                count=chips, memory_peak_bytes=int(card_peak))
+                count=chips, memory_peak_bytes=fullest_card(on_card))
             if args.trace:
-                busy = devtrace.busy_seconds(iv)
+                busy = devtrace.mean_busy_seconds(cards)
                 result["device"].update(busy_s=busy, window_s=window_s)
                 result["breakdown"] = dict(
                     device_ops=devtrace.top_ops(iv),
-                    idle_gaps=devtrace.idle_gaps(iv))
+                    idle_gaps=devtrace.idle_gaps(rows, events=events))
         else:
             result["device"] = dict(platform="cpu", kind="cpu", count=0,
                                     memory_peak_bytes=0)
@@ -389,10 +533,15 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
                                            "limit": LIMITS["rows_wrong"]}}
         print("setup: generate %.3f s, load %.3f s, warm pass %.3f s; "
               "window %.3f s, %d passes of %.3f Mb (%s s), anonymous memory "
-              "%.3f GiB at its start; check %.3f s; launches %s"
+              "%.3f GiB at its start, %.3f GiB this process's peak; %d "
+              "worker record(s) [pid, card, card peak, torch loaded] %s; "
+              "check %.3f s; launches %s"
               % (gen_s, load_s, warm_s, window_s, len(outs), genome_mb,
                  " ".join("%.3f" % w for w in walls), anon_start / GIB,
-                 check_s, json.dumps(launches)),
+                 sampler.own_peak / GIB, len(records),
+                 json.dumps([[r["pid"], r["card"], r["card_peak"],
+                              r["torch_loaded"]] for r in records]), check_s,
+                 json.dumps(launches)),
               file=sys.stderr)
         if not correct:
             with open(log, errors="replace") as f:
@@ -406,4 +555,5 @@ def main(argv: Optional[List[str]] = None, require_cuda: bool = True,
         sys.stdout.flush()
         return 0
     finally:
+        os.environ.pop(workerprobe.ENV, None)
         shutil.rmtree(work, ignore_errors=True)

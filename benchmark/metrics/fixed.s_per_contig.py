@@ -9,14 +9,15 @@ import spantree
 
 
 def read(ctx):
-    evs = spantree.events() or []
+    evs = ctx["events"] or []
     contigs = spantree.labelled(evs, "contig")
     if not contigs:
         return None
-    runs = {e["id"]: spantree.seconds(e)
+    runs = {(e.get("pid"), e["id"]): spantree.seconds(e)
             for e in spantree.labelled(evs, "run")}
-    outside = sum(runs.values()) - sum(spantree.seconds(c) for c in contigs
-                                       if c["parent"] in runs)
+    outside = sum(runs.values()) - sum(
+        spantree.seconds(c) for c in contigs
+        if (c.get("pid"), c["parent"]) in runs)
     setup = sum(spantree.seconds(e)
                 for e in spantree.labelled(evs, "contig.setup"))
     return (outside + setup) / len(contigs)

@@ -6,7 +6,7 @@ import spantree
 
 
 def read(ctx):
-    evs = spantree.events() or []
+    evs = ctx["events"] or []
     if not spantree.labelled(evs, "contig"):
         return None
     return sum(spantree.seconds(e) for e in spantree.labelled(

@@ -8,7 +8,7 @@ import spantree
 
 
 def read(ctx):
-    runs = sorted((e for e in spantree.events() or [] if e["label"] == "run"
+    runs = sorted((e for e in ctx["events"] or [] if e["label"] == "run"
                    and e["attrs"].get("anon_bytes") is not None),
                   key=lambda e: e["start_ns"])
     if len(runs) < 3:

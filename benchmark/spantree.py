@@ -2,10 +2,14 @@
 ``events()``): each event's label, start and end on the Unix-epoch clock
 in nanoseconds, id, parent id, thread, contig id and attributes.
 
-The per-layer readers take them from the recorder loaded in the harness's
-process; a program without that recorder gives None, and so do they.
-``tools/span_idle.py`` lays them over the device trace: a chrome trace's
-``ts`` is microseconds after its ``baseTimeNanoseconds``."""
+The harness takes them from the recorder loaded in its own process
+(``events``) and from each worker's probe, tags each with its process's
+``pid`` and ``card``, and hands them to the per-layer readers as
+``ctx["events"]`` on the trace's clock: ``start_ns`` and ``end_ns`` in
+nanoseconds after the merged trace's ``baseTimeNanoseconds`` (a chrome
+trace's ``ts`` is microseconds after it). A program without that recorder
+gives None, and so do the readers. Span ids are a process's own: match a
+parent by ``pid`` and ``id``."""
 
 from __future__ import annotations
 
@@ -115,24 +119,12 @@ class Innermost:
 
 def named_gaps(iv, evs: List[dict], base_ns: int, n: int = 10
                ) -> List[list]:
-    """devtrace's ``idle_gaps`` (the ``n`` longest gaps between device
-    activities, named by the activities on either side, longest first),
-    each name led by the innermost main-thread span open at the gap's
-    midpoint."""
-    inner = Innermost(evs, base_ns)
-    gaps = []
-    end, last = None, ""
-    for s, e, name, _ in iv:
-        if end is not None and s > end:
-            gaps.append(["%s | %s -> %s" % (
-                inner.at((s + end) / 2) or "(no span)",
-                devtrace.short_name(last)[:60],
-                devtrace.short_name(name)[:60]),
-                (s - end) * 1e-6])
-        if end is None or e >= end:
-            end, last = e, name
-    gaps.sort(key=lambda g: -g[1])
-    return gaps[:n]
+    """devtrace's ``idle_gaps`` with ``evs`` on the Unix-epoch clock of a
+    trace whose ``baseTimeNanoseconds`` is ``base_ns``: each gap's name led
+    by the innermost main-thread span open at its midpoint."""
+    return devtrace.idle_gaps(iv, n, [
+        dict(e, start_ns=e["start_ns"] - base_ns,
+             end_ns=e["end_ns"] - base_ns) for e in evs])
 
 
 def least_squares_slope(y: List[float]) -> float:

@@ -18,7 +18,7 @@ def reader(name):
 
 
 def ctx(intervals):
-    return dict(intervals=intervals, passes=2,
+    return dict(intervals=intervals, cards={0: intervals}, passes=2,
                 contigs=[dict(length=1000, reads=10, read_len=100),
                          dict(length=500, reads=4, read_len=150)],
                 peaks=dict(hbm_bytes_per_s=PEAK), window_s=1.0)

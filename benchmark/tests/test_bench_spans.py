@@ -1,8 +1,8 @@
 """The readers of the port's span events (``spantree.py`` and the metrics
 ``ingest_wait.s_per_mb``, ``fixed.s_per_contig``,
-``run_growth.mib_per_run``) on synthetic events, on a program without
-the recorder, and in a traced harness run on the CPU; the idle gaps named
-by the main thread's spans."""
+``run_growth.mib_per_run``, which read them from the readers' ``ctx``) on
+synthetic events, on a program without the recorder, and in a traced
+harness run on the CPU; the idle gaps named by the main thread's spans."""
 
 import functools
 import json
@@ -41,19 +41,18 @@ def window(runs=3, anon=(100, 110, 120)):
     return out
 
 
-def read(name, evs, monkeypatch, mb=16.0):
-    monkeypatch.setattr(spantree, "events", lambda: evs)
-    return harness.metric_reader(name)(dict(mb=mb))
+def read(name, evs, mb=16.0):
+    return harness.metric_reader(name)(dict(mb=mb, events=evs))
 
 
-def test_ingest_wait_per_mb(monkeypatch):
-    assert read("ingest_wait.s_per_mb", window(), monkeypatch, mb=48.0) \
+def test_ingest_wait_per_mb():
+    assert read("ingest_wait.s_per_mb", window(), mb=48.0) \
         == pytest.approx(1.5 / 48.0)
 
 
-def test_fixed_per_contig(monkeypatch):
+def test_fixed_per_contig():
     # 3 s of each run outside its contig, plus its 1 s of set-up
-    assert read("fixed.s_per_contig", window(), monkeypatch) \
+    assert read("fixed.s_per_contig", window()) \
         == pytest.approx(4.0)
 
 
@@ -61,8 +60,8 @@ def test_fixed_per_contig(monkeypatch):
                                         ((100, 100, 100), 0.0),
                                         ((130, 100, 130), 0.0),
                                         ((100, 90, 70), -15.0)])
-def test_run_growth_slope(monkeypatch, anon, slope):
-    assert read("run_growth.mib_per_run", window(anon=anon), monkeypatch) \
+def test_run_growth_slope(anon, slope):
+    assert read("run_growth.mib_per_run", window(anon=anon)) \
         == pytest.approx(slope)
 
 
@@ -73,10 +72,10 @@ NAMES = ("ingest_wait.s_per_mb", "fixed.s_per_contig",
 @pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("evs", [None, [], window(runs=2)],
                          ids=["no recorder", "no events", "two runs"])
-def test_no_reading(monkeypatch, name, evs):
+def test_no_reading(name, evs):
     """None where the program keeps no events, records none, or (the
     growth) ran under three passes."""
-    got = read(name, evs, monkeypatch)
+    got = read(name, evs)
     if evs and name != "run_growth.mib_per_run":
         assert got is not None
     else:
@@ -92,7 +91,7 @@ def test_program_without_recorder(monkeypatch):
                         types.SimpleNamespace(report=lambda **k: {}))
     assert spantree.events() is None
     for name in NAMES:
-        assert harness.metric_reader(name)(dict(mb=1.0)) is None
+        assert read(name, spantree.events(), mb=1.0) is None
 
 
 def test_self_seconds_and_split():
